@@ -1,0 +1,22 @@
+"""Where the port runs: ``cuda`` unless the caller asks for the CPU."""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device: Union[str, torch.device, None] = "cuda") -> torch.device:
+    """The device an entry point runs on.  ``None`` means ``cuda``.  A CUDA
+    request without a usable card raises: the port never carries on on the
+    CPU unless the caller asked for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,143 @@
+"""LM assembly, dense decoder branch.
+
+Port of the dense branch of ``repro/models/model.py``:
+
+* ``init_params(gen, cfg)``            — stacked per-layer params (leading ``L``)
+* ``init_cache(cfg, batch, context)``   — stacked decode cache
+* ``prefill(params, cfg, batch, cache)`` → (last-token logits, cache)
+* ``decode_step(params, cfg, tokens, positions, cache)`` → (logits, cache)
+
+Parameters and caches keep the JAX pytree's keys and shapes, so
+:mod:`repro_torch.bridge` maps one onto the other 1:1.  A Python loop over
+the layers replaces ``lax.scan``; each layer reads views of the stacked
+tensors, so cache writes land in the stacked cache in place (where the JAX
+package donates it).  Families other than the dense GQA decoder raise
+``NotImplementedError`` until their slice is ported (ROADMAP.md, queue A);
+so do chunked-local attention layers, whose only configuration
+(``llama4-scout``) is a MoE.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple, Union
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..device import resolve_device
+from . import attention as attn
+from .layers import Params, dense_init, embed_init, ffn_apply, ffn_init, rms_norm
+
+__all__ = ["init_params", "init_cache", "prefill", "decode_step", "model_dtype"]
+
+
+def model_dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _check_ported(cfg: ArchConfig) -> None:
+    if (
+        cfg.family != "dense"
+        or cfg.attn_kind not in ("full", "swa")
+        or cfg.is_moe
+        or cfg.is_encdec
+        or cfg.frontend != "none"
+    ):
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} with {cfg.attn_kind!r} attention is not "
+            "ported yet; the port has the dense GQA decoder only (ROADMAP.md, queue A)"
+        )
+
+
+def _index(tree: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked tree: views, not copies."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees: list) -> Any:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+# ------------------------------------------------------------------- params
+def _layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=gen.device)  # noqa: E731
+    return {
+        "ln1": ones(),
+        "attn": attn.attn_init(gen, cfg, dtype),
+        "ln2": ones(),
+        "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff, dtype, gated=cfg.gated_ffn),
+    }
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    """Random weights drawn from ``gen``, on ``gen``'s device."""
+    _check_ported(cfg)
+    dtype = model_dtype(cfg)
+    p: Params = {
+        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
+        "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype, scale=1.0 / math.sqrt(cfg.d_model))
+    p["layers"] = _stack([_layer_init(gen, cfg, dtype) for _ in range(cfg.n_layers)])
+    return p
+
+
+def _embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens]
+
+
+def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]  # (V, d)
+    return torch.einsum("bsd,vd->bsv", x, head)
+
+
+# ------------------------------------------------------------------- caches
+def init_cache(cfg: ArchConfig, batch: int, context: int, device: Union[str, torch.device, None] = "cuda") -> Params:
+    """Stacked (per-layer leading dim) decode cache, zero K/V and every
+    position tag -1."""
+    _check_ported(cfg)
+    one = attn.init_kv_cache(cfg, batch, context, model_dtype(cfg), resolve_device(device))
+    L = cfg.n_layers
+    return {"kv": {k: v[None].expand((L,) + v.shape).clone() for k, v in one.items()}}
+
+
+# ---------------------------------------------------------- prefill / decode
+def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cache: Params) -> Tuple[torch.Tensor, Params]:
+    """Process the prompt ``batch["tokens"]`` (B, S); returns (logits for
+    the last position (B, 1, V), cache filled in place)."""
+    _check_ported(cfg)
+    x = _embed_tokens(params, batch["tokens"])
+    for i in range(cfg.n_layers):
+        lp = _index(params["layers"], i)
+        a, _ = attn.attention_prefill(
+            lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, _index(cache["kv"], i), cfg.attn_kind, cfg.window
+        )
+        x = x + a
+        x = x + ffn_apply(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), gated=cfg.gated_ffn)
+    return _logits(params, cfg, x[:, -1:, :]), cache
+
+
+def decode_step(
+    params: Params,
+    cfg: ArchConfig,
+    tokens: torch.Tensor,  # (B, 1)
+    positions: torch.Tensor,  # (B,) absolute position of the new token
+    cache: Params,
+) -> Tuple[torch.Tensor, Params]:
+    """One token per row; returns (logits (B, 1, V), cache updated in place)."""
+    _check_ported(cfg)
+    x = _embed_tokens(params, tokens)
+    for i in range(cfg.n_layers):
+        lp = _index(params["layers"], i)
+        a, _ = attn.attention_decode(
+            lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, _index(cache["kv"], i), positions, cfg.attn_kind, cfg.window
+        )
+        x = x + a
+        x = x + ffn_apply(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), gated=cfg.gated_ffn)
+    return _logits(params, cfg, x), cache
