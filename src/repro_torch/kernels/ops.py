@@ -6,14 +6,23 @@ PyTorch version.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from .flash_attention import attention_plain, flash_attention
+from .ssd_scan import ssd_chunk_kernel, ssd_chunk_plain
 
-__all__ = ["attention", "attention_plain", "flash_attention"]
+__all__ = ["attention", "attention_plain", "flash_attention", "ssd_chunk", "ssd_chunk_kernel", "ssd_chunk_plain"]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
               window: int = 0, chunk: int = 0) -> torch.Tensor:
     """Forward GQA attention, q (B,S,H,D) against k/v (B,S,KV,D)."""
     return flash_attention(q, k, v, causal=causal, window=window, chunk=chunk)
+
+
+def ssd_chunk(a_dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD intra-chunk block: a_dt (B,H,nc,Q), x (B,H,nc,Q,P), b/c
+    (B,G,nc,Q,N) → (y_diag (B,H,nc,Q,P), chunk states (B,H,nc,P,N) f32)."""
+    return ssd_chunk_kernel(a_dt, x, b, c)

@@ -1,6 +1,7 @@
-"""LM assembly, dense decoder branch.
+"""LM assembly: the dense decoder, SSM and hybrid branches.
 
-Port of the dense branch of ``repro/models/model.py``:
+Port of the dense, SSM (mamba2) and hybrid (zamba2) branches of
+``repro/models/model.py``:
 
 * ``init_params(gen, cfg)``            — stacked per-layer params (leading ``L``)
 * ``init_cache(cfg, batch, context)``   — stacked decode cache
@@ -11,7 +12,10 @@ Parameters and caches keep the JAX pytree's keys and shapes, so
 :mod:`repro_torch.bridge` maps one onto the other 1:1.  A Python loop over
 the layers replaces ``lax.scan``; each layer reads views of the stacked
 tensors, so cache writes land in the stacked cache in place (where the JAX
-package donates it).  Families other than the dense GQA decoder raise
+package donates it).  The hybrid's shared attention+MLP block runs after
+every ``attn_every``-th layer on its own slice ``idx // attn_every`` of
+the stacked ``shared_attn`` cache, where the reference has ``lax.cond``.
+Other families (MLA, MoE, encoder-decoder, VLM) raise
 ``NotImplementedError`` until their slice is ported (ROADMAP.md, queue A);
 so do chunked-local attention layers, whose only configuration
 (``llama4-scout``) is a MoE.
@@ -19,13 +23,14 @@ so do chunked-local attention layers, whose only configuration
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from . import attention as attn
+from . import ssm as ssm_mod
 from .layers import Params, dense_init, embed_init, ffn_apply, ffn_init, rms_norm
 
 __all__ = ["init_params", "init_cache", "prefill", "decode_step", "model_dtype"]
@@ -36,16 +41,14 @@ def model_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if (
-        cfg.family != "dense"
-        or cfg.attn_kind not in ("full", "swa")
-        or cfg.is_moe
-        or cfg.is_encdec
-        or cfg.frontend != "none"
-    ):
+    plain = not cfg.is_moe and not cfg.is_encdec and cfg.frontend == "none"
+    dense = cfg.family == "dense" and cfg.attn_kind in ("full", "swa")
+    hybrid = cfg.family == "hybrid" and cfg.attn_kind == "swa" and cfg.attn_every > 0
+    if not (plain and (dense or cfg.family == "ssm" or hybrid)):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with {cfg.attn_kind!r} attention is not "
-            "ported yet; the port has the dense GQA decoder only (ROADMAP.md, queue A)"
+            "ported yet; the port has the dense GQA decoder, the SSM and the SWA hybrid "
+            "only (ROADMAP.md, queue A)"
         )
 
 
@@ -63,7 +66,8 @@ def _stack(trees: list) -> Any:
 
 
 # ------------------------------------------------------------------- params
-def _layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
+def _block_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
+    """Pre-norm attention + FFN: a dense layer, or the hybrid's shared block."""
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=gen.device)  # noqa: E731
     return {
         "ln1": ones(),
@@ -71,6 +75,15 @@ def _layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Pa
         "ln2": ones(),
         "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff, dtype, gated=cfg.gated_ffn),
     }
+
+
+def _layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
+    if cfg.family in ("ssm", "hybrid"):
+        return {
+            "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=gen.device),
+            "ssm": ssm_mod.ssm_init(gen, cfg, dtype),
+        }
+    return _block_init(gen, cfg, dtype)
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
@@ -84,6 +97,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype, scale=1.0 / math.sqrt(cfg.d_model))
     p["layers"] = _stack([_layer_init(gen, cfg, dtype) for _ in range(cfg.n_layers)])
+    if cfg.family == "hybrid":
+        p["shared_block"] = _block_init(gen, cfg, dtype)
     return p
 
 
@@ -98,13 +113,25 @@ def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------- caches
+def _stacked(one: Params, n: int) -> Params:
+    return {k: v[None].expand((n,) + v.shape).clone() for k, v in one.items()}
+
+
 def init_cache(cfg: ArchConfig, batch: int, context: int, device: Union[str, torch.device, None] = "cuda") -> Params:
-    """Stacked (per-layer leading dim) decode cache, zero K/V and every
-    position tag -1."""
+    """Stacked (per-layer leading dim) decode cache: zero K/V with every
+    position tag -1 (``kv``, dense), zero SSM and conv state (``ssm``), and
+    for the hybrid one K/V ring per shared-block invocation
+    (``shared_attn``)."""
     _check_ported(cfg)
-    one = attn.init_kv_cache(cfg, batch, context, model_dtype(cfg), resolve_device(device))
+    dtype, dev = model_dtype(cfg), resolve_device(device)
     L = cfg.n_layers
-    return {"kv": {k: v[None].expand((L,) + v.shape).clone() for k, v in one.items()}}
+    if cfg.family == "dense":
+        return {"kv": _stacked(attn.init_kv_cache(cfg, batch, context, dtype, dev), L)}
+    cache = {"ssm": _stacked(ssm_mod.init_ssm_cache(cfg, batch, dtype, dev), L)}
+    if cfg.family == "hybrid":
+        n_inv = (L + cfg.attn_every - 1) // cfg.attn_every
+        cache["shared_attn"] = _stacked(attn.init_kv_cache(cfg, batch, context, dtype, dev), n_inv)
+    return cache
 
 
 # ---------------------------------------------------------- prefill / decode
@@ -115,12 +142,29 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cac
     x = _embed_tokens(params, batch["tokens"])
     for i in range(cfg.n_layers):
         lp = _index(params["layers"], i)
-        a, _ = attn.attention_prefill(
-            lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, _index(cache["kv"], i), cfg.attn_kind, cfg.window
-        )
-        x = x + a
-        x = x + ffn_apply(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), gated=cfg.gated_ffn)
+        hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if "ssm" in lp:
+            a, _ = ssm_mod.ssm_apply(lp["ssm"], hn, cfg, state=_index(cache["ssm"], i))
+            x = x + a
+        else:
+            a, _ = attn.attention_prefill(lp["attn"], hn, cfg, _index(cache["kv"], i), cfg.attn_kind, cfg.window)
+            x = x + a
+            x = x + ffn_apply(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), gated=cfg.gated_ffn)
+        if "shared_block" in params and i % cfg.attn_every == 0:
+            x = _shared_block(params["shared_block"], cfg, x, _index(cache["shared_attn"], i // cfg.attn_every))
     return _logits(params, cfg, x[:, -1:, :]), cache
+
+
+def _shared_block(sp: Params, cfg: ArchConfig, x: torch.Tensor, sa: Params, positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The hybrid's shared attention+MLP block on its cache slice ``sa``:
+    prompt attention (``positions`` None) or one decode step."""
+    hn = rms_norm(x, sp["ln1"], cfg.norm_eps)
+    if positions is None:
+        a, _ = attn.attention_prefill(sp["attn"], hn, cfg, sa, cfg.attn_kind, cfg.window)
+    else:
+        a, _ = attn.attention_decode(sp["attn"], hn, cfg, sa, positions, cfg.attn_kind, cfg.window)
+    x = x + a
+    return x + ffn_apply(sp["ffn"], rms_norm(x, sp["ln2"], cfg.norm_eps), gated=cfg.gated_ffn)
 
 
 def decode_step(
@@ -135,9 +179,14 @@ def decode_step(
     x = _embed_tokens(params, tokens)
     for i in range(cfg.n_layers):
         lp = _index(params["layers"], i)
-        a, _ = attn.attention_decode(
-            lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, _index(cache["kv"], i), positions, cfg.attn_kind, cfg.window
-        )
-        x = x + a
-        x = x + ffn_apply(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), gated=cfg.gated_ffn)
+        hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if "ssm" in lp:
+            a, _ = ssm_mod.ssm_decode(lp["ssm"], hn, cfg, _index(cache["ssm"], i))
+            x = x + a
+        else:
+            a, _ = attn.attention_decode(lp["attn"], hn, cfg, _index(cache["kv"], i), positions, cfg.attn_kind, cfg.window)
+            x = x + a
+            x = x + ffn_apply(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), gated=cfg.gated_ffn)
+        if "shared_block" in params and i % cfg.attn_every == 0:
+            x = _shared_block(params["shared_block"], cfg, x, _index(cache["shared_attn"], i // cfg.attn_every), positions)
     return _logits(params, cfg, x), cache

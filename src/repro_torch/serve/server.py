@@ -1,7 +1,7 @@
 """Continuous-batching inference server over the comm hand-off.
 
 Port of ``repro/serve/server.py``: a fixed pool of ``slots`` shares one
-stacked ring KV cache; requests arrive from any thread, prefill fills a
+stacked decode cache; requests arrive from any thread, prefill fills a
 free slot, and every engine step decodes ALL active slots in one batched
 ``decode_step``.  With ``transport='collective'`` (the default) requests
 and per-token responses cross the paper's :class:`CommInterface` verbs on
@@ -78,8 +78,9 @@ EmitFn = Callable[[Request, int, bool], None]
 class DecodeCore:
     """Slot scheduler + batched decode, independent of any transport.
 
-    Owns the batched ring KV cache (``init_cache(arch, slots, context)``)
-    and the per-slot positions / budgets.  Two admission modes:
+    Owns the batched decode cache (``init_cache(arch, slots, context)``:
+    ring K/V, or SSM and conv state, or both) and the per-slot positions /
+    budgets.  Two admission modes:
 
     * **single-shot** (``prefill_chunk == 0``): the whole prompt runs
       through ``prefill`` on a one-slot scratch cache whose rows are then
@@ -128,17 +129,17 @@ class DecodeCore:
     # ----------------------------------------------------------- cache rows
     def _splice(self, one: Dict[str, Any], slot: int) -> None:
         """Copy a one-slot cache into row ``slot`` of the stacked cache, in
-        place (layer dim first, batch at axis 1)."""
-        for name, full in self.cache["kv"].items():
-            full[:, slot] = one["kv"][name][:, 0]
+        place: every leaf has its layer (or invocation) dim first and the
+        batch at axis 1 (K/V rings, SSM and conv state)."""
+        for (_, full), (_, piece) in zip(_named_leaves(self.cache), _named_leaves(one)):
+            full[:, slot] = piece[:, 0]
 
     def _reset_row(self, slot: int) -> None:
-        """Zero a recycled row's KV and tag its positions empty (-1), so
-        stale tags cannot leak into a new sequence."""
-        kv = self.cache["kv"]
-        kv["k"][:, slot] = 0
-        kv["v"][:, slot] = 0
-        kv["pos"][:, slot] = -1
+        """Start a recycled row afresh: zero K/V, SSM and conv state, and
+        every position tag empty (-1), so nothing of the row's last request
+        leaks into the next."""
+        for name, full in _named_leaves(self.cache):
+            full[:, slot] = -1 if name == "pos" else 0
 
     # ------------------------------------------------------------- admission
     @torch.inference_mode()
@@ -210,6 +211,15 @@ class DecodeCore:
                 self._slots[i] = None
         self.steps += 1
         return True
+
+
+def _named_leaves(tree: Dict[str, Any], name: str = ""):
+    """(key, tensor) of every leaf of a nested cache dict, in key order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, k)
+    else:
+        yield name, tree
 
 
 class InferenceServer:

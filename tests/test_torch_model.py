@@ -1,11 +1,13 @@
-"""Port parity: the dense decoder (``repro_torch.models``) and the bridge.
+"""Port parity: the dense, SSM and hybrid decoders (``repro_torch.models``)
+and the bridge.
 
 JAX-made parameters are carried across with ``params_from_jax``, so both
 packages compute the same function; prefill and decode logits must agree
-within 1e-4 at float32.  The JAX side runs with
-``REPRO_KERNELS=pallas-interpret``, so a 128-token prompt goes through the
-Pallas flash-attention kernel (in interpret mode) and a 13-token one
-through its plain path."""
+within 1e-4 at float32, and so must every cache leaf (position tags
+exactly).  The JAX side runs with ``REPRO_KERNELS=pallas-interpret``, so a
+128-token prompt goes through the Pallas flash-attention kernel (in
+interpret mode) and a 13-token one through its plain path; SSM layers go
+through the Pallas SSD kernel at every prompt length."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +36,20 @@ def _err(j, t):
     return float(np.max(np.abs(np.asarray(j, np.float32) - t.float().numpy())))
 
 
-@pytest.fixture(scope="module", params=["tinyllama-1.1b", "qwen2-7b", "h2o-danube-3-4b"])
+def _assert_caches_match(jc, tc):
+    """Every leaf of the JAX cache against the port's: position tags
+    exactly, K/V and SSM/conv state within TOL."""
+    assert set(jc) == set(tc)
+    for key, jv in jc.items():
+        if isinstance(jv, dict):
+            _assert_caches_match(jv, tc[key])
+        elif key == "pos":
+            assert np.array_equal(np.asarray(jv), tc[key].numpy())
+        else:
+            assert _err(jv, tc[key]) <= TOL, key
+
+
+@pytest.fixture(scope="module", params=["tinyllama-1.1b", "qwen2-7b", "h2o-danube-3-4b", "mamba2-130m", "zamba2-1.2b"])
 def model(request):
     name = request.param
     jcfg = J_SMOKES[name].variant(dtype="float32")
@@ -54,9 +69,7 @@ def test_prefill_and_decode_logits_match(model, plen, monkeypatch):
     tl, tc2 = prefill(tp, tcfg, {"tokens": torch.from_numpy(toks).long()}, tc)
     assert tc2 is tc and tl.shape == (2, 1, jcfg.vocab_size)
     assert _err(jl, tl) <= TOL
-    for name in ("k", "v"):
-        assert _err(jc["kv"][name], tc["kv"][name]) <= TOL
-    assert np.array_equal(np.asarray(jc["kv"]["pos"]), tc["kv"]["pos"].numpy())
+    _assert_caches_match(jc, tc)
     # three greedy decode steps from the same caches
     nxt = np.array(jnp.argmax(jl[:, -1], -1), np.int32)
     assert np.array_equal(nxt, tl[:, -1].argmax(-1).numpy())
@@ -101,7 +114,36 @@ def test_init_params_keeps_the_jax_tree_layout():
     assert tshape == jshape
 
 
-@pytest.mark.parametrize("name", ["mamba2-130m", "minicpm3-4b", "deepseek-moe-16b", "whisper-large-v3"])
+@pytest.mark.parametrize("name", ["mamba2-130m", "zamba2-1.2b"])
+def test_ssm_and_hybrid_trees_keep_the_jax_layout(name):
+    """bf16 smokes: every parameter and cache leaf has the JAX shape and
+    dtype, the f32 leaves (A_log, D, dt_bias) included."""
+    jcfg = J_SMOKES[name]
+    spec = lambda a: (tuple(a.shape), str(a.dtype).replace("torch.", ""))  # noqa: E731
+    jp = jax.eval_shape(lambda: j_init_params(jax.random.PRNGKey(0), jcfg))
+    tp = init_params(torch.Generator().manual_seed(0), SMOKES[name])
+    assert jax.tree.map(spec, tp) == jax.tree.map(spec, jp)
+    jc = jax.eval_shape(lambda: j_init_cache(jcfg, 3, CTX))
+    tc = init_cache(SMOKES[name], 3, CTX, "cpu")
+    assert jax.tree.map(spec, tc) == jax.tree.map(spec, jc)
+
+
+def test_bf16_hybrid_params_cross_bit_exact():
+    jcfg = J_SMOKES["zamba2-1.2b"]
+    jp = j_init_params(jax.random.PRNGKey(2), jcfg)
+    tp = params_from_jax(_np_tree(jp), "cpu")
+    dtypes = set()
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jp)[0]:
+        t = tp
+        for key in path:
+            t = t[key.key]
+        assert str(t.dtype).replace("torch.", "") == str(leaf.dtype) and tuple(t.shape) == leaf.shape, path
+        assert np.array_equal(np.asarray(leaf, np.float32), t.float().numpy()), path
+        dtypes.add(t.dtype)
+    assert dtypes == {torch.bfloat16, torch.float32}
+
+
+@pytest.mark.parametrize("name", ["llama4-scout-17b-a16e", "minicpm3-4b", "deepseek-moe-16b", "whisper-large-v3"])
 def test_other_families_are_not_ported_yet(name):
     with pytest.raises(NotImplementedError, match="queue A"):
         init_params(torch.Generator().manual_seed(0), SMOKES[name])

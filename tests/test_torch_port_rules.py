@@ -5,8 +5,9 @@
   ``repro`` (``repro_torch`` is the port).
 * Entry points run on ``cuda`` unless the caller asks for the CPU; without
   a card they raise instead of carrying on on the CPU.
-* The CUDA kernel agrees with its plain version (``gpu``-marked: needs a
-  card, decided inside the test)."""
+* The CUDA kernels agree with their plain versions (``gpu``-marked: need
+  a card, decided inside the test).  This file imports no JAX, so those
+  tests run on a machine that has none."""
 import ast
 from pathlib import Path
 
@@ -37,7 +38,8 @@ def _imported_roots(path: Path):
 
 def test_port_files_exist():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
-    for rel in ("src/repro_torch/models/model.py", "src/repro_torch/kernels/flash_attention.py",
+    for rel in ("src/repro_torch/models/model.py", "src/repro_torch/models/ssm.py",
+                "src/repro_torch/kernels/flash_attention.py", "src/repro_torch/kernels/ssd_scan.py",
                 "src/repro_torch/serve/server.py", "src/repro_torch/core/comm/collective.py", "chip_smoke.py"):
         assert rel in names
 
@@ -89,6 +91,9 @@ def test_entry_points_run_on_the_cpu_when_asked(no_card):
     # (B, S, H, KV, D, causal, window, chunk, dtype)
     (1, 512, 32, 4, 64, True, 0, 0, torch.bfloat16),
     (1, 200, 32, 4, 64, True, 0, 0, torch.bfloat16),
+    (1, 1024, 32, 32, 64, True, 4096, 0, torch.bfloat16),  # zamba2-1.2b's shared block (swa, H == KV)
+    (1, 777, 32, 32, 64, True, 4096, 0, torch.bfloat16),  # the same at a ragged S
+    (1, 777, 32, 32, 64, True, 256, 0, torch.bfloat16),  # H == KV with a window that masks
     (2, 256, 8, 2, 64, True, 64, 0, torch.float32),
     (2, 256, 4, 2, 64, True, 0, 128, torch.float32),
     (1, 77, 4, 2, 128, False, 0, 0, torch.float32),
@@ -114,3 +119,46 @@ def test_cuda_kernel_matches_plain(case):
     assert (out.float() - ref.float()).abs().max().item() < tol
     with pytest.raises(ValueError):
         flash_attention(q[..., : d // 2 + 1], k[..., : d // 2 + 1], v[..., : d // 2 + 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case, dtype", [
+    # (B, H, G, nc, Q, P, N): the reference's SSD_CASES (tests/test_kernels.py) in f32
+    ((2, 4, 2, 3, 64, 64, 128), torch.float32),
+    ((1, 2, 1, 2, 128, 64, 64), torch.float32),
+    ((1, 8, 8, 1, 64, 32, 128), torch.float32),
+    ((2, 2, 1, 4, 32, 64, 32), torch.float32),
+    ((1, 24, 1, 16, 64, 64, 128), torch.bfloat16),  # mamba2-130m prefill, S=1024
+    ((1, 64, 1, 16, 64, 64, 64), torch.bfloat16),  # zamba2-1.2b prefill, S=1024
+    ((2, 8, 1, 3, 8, 16, 16), torch.float32),  # the smoke configs' shape
+])
+def test_cuda_ssd_kernel_matches_plain(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.ssd_scan import _lib, smem_bytes, ssd_chunk_kernel, ssd_chunk_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bsz, h, g, nc, q, p, n = case
+    assert smem_bytes(q, p, n) == _lib().repro_ssd_chunk_smem_bytes(q, p, n)
+    gen = torch.Generator(device="cuda").manual_seed(sum(case))
+    a = -torch.randn((bsz, h, nc, q), generator=gen, device="cuda").abs() * 0.1
+    x = torch.randn((bsz, h, nc, q, p), generator=gen, device="cuda").to(dtype)
+    b = (torch.randn((bsz, g, nc, q, n), generator=gen, device="cuda") * 0.3).to(dtype)
+    c = (torch.randn((bsz, g, nc, q, n), generator=gen, device="cuda") * 0.3).to(dtype)
+    before = ssd_chunk_kernel.launches
+    y, st = ssd_chunk_kernel(a, x, b, c)
+    torch.cuda.synchronize()
+    assert ssd_chunk_kernel.launches == before + 1
+    py, ps = ssd_chunk_plain(a, x, b, c)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    if dtype == torch.float32:  # the reference's 1e-4
+        assert (y - py).abs().max().item() <= 1e-4 and (st - ps).abs().max().item() <= 1e-4
+    else:  # y rounds to bf16 in both: at most 2 bf16 ulps of the largest |y|
+        assert (y.float() - py.float()).abs().max().item() <= 2.0**-7 * py.float().abs().max().item()
+        assert (st - ps).abs().max().item() <= 1e-4 * max(1.0, ps.abs().max().item())
+    # a strided view (the model's layout) reads the same as a contiguous input
+    xs = x.permute(0, 2, 3, 1, 4).contiguous().permute(0, 3, 1, 2, 4)
+    ys, ss = ssd_chunk_kernel(a, xs, b, c)
+    assert torch.equal(ys, y) and torch.equal(ss, st)
+    with pytest.raises(ValueError):
+        ssd_chunk_kernel(a, x.transpose(-1, -2).contiguous().transpose(-1, -2), b, c)

@@ -7,6 +7,9 @@
 * ``encode_msg`` bytes equal the reference's.
 * ``CommChannel`` parks posts on EAGAIN under a bounded ``ResourceLimits``
   and drains them in order.
+* The same for ``mamba2-130m`` and ``zamba2-1.2b`` (SSM and hybrid), with
+  fewer slots than requests, so recycled slots must start from zero SSM,
+  conv and K/V state, single-shot and chunked.
 * The launcher runs on the CPU when asked to."""
 import threading
 
@@ -27,7 +30,7 @@ from repro_torch.core.comm.interface import PostStatus
 from repro_torch.core.comm.resources import ResourceLimits
 from repro_torch.core.comm.wire import decode_msg, encode_msg
 from repro_torch.launch.serve import main as serve_main
-from repro_torch.serve import InferenceServer, ServeConfig
+from repro_torch.serve import DecodeCore, InferenceServer, ServeConfig
 
 torch.set_num_threads(1)
 
@@ -168,5 +171,58 @@ def test_collective_server_under_two_client_threads(model):
 def test_launcher_runs_on_the_cpu_when_asked(capsys):
     rc = serve_main(["--arch", "tinyllama-1.1b", "--device", "cpu", "--requests", "4", "--clients", "2",
                      "--max-new", "3", "--prompt-len", "5"])
+    assert rc == 0
+    assert "requests=4/4" in capsys.readouterr().out
+
+
+# ------------------------------------------------------- SSM and hybrid
+@pytest.fixture(scope="module", params=["mamba2-130m", "zamba2-1.2b"])
+def ssm_model(request):
+    name = request.param
+    jcfg = J_SMOKES[name].variant(dtype="float32")
+    jp = j_init_params(jax.random.PRNGKey(4), jcfg)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    return jcfg, SMOKES[name].variant(dtype="float32"), jp, tp
+
+
+def _jax_streams(jcfg, jp, prefill_chunk):
+    return _serve(JServer(jcfg, jp, JServeConfig(slots=2, context=160, max_prefill=128, transport="inline",
+                                                 prefill_chunk=prefill_chunk)))
+
+
+@pytest.mark.parametrize("prefill_chunk", [0, 16])
+def test_ssm_and_hybrid_streams_match_the_jax_server(ssm_model, prefill_chunk):
+    """7 requests through 2 slots on both transports: every slot is
+    recycled, and a leaked SSM, conv or K/V row would change the tokens."""
+    jcfg, tcfg, jp, tp = ssm_model
+    want = _jax_streams(jcfg, jp, prefill_chunk)
+    for transport in ("inline", "collective"):
+        server = InferenceServer(tcfg, tp, ServeConfig(slots=2, context=160, max_prefill=128, transport=transport,
+                                                       prefill_chunk=prefill_chunk))
+        assert _serve(server) == want, transport
+        assert server.core.prefill_calls == (0 if prefill_chunk else len(TRACE))
+
+
+def test_recycled_rows_start_from_zero_state():
+    cfg = SMOKES["zamba2-1.2b"].variant(dtype="float32")
+    core = DecodeCore(cfg, {"embed": torch.zeros(1)}, slots=3, context=32)
+    leaves = [core.cache["ssm"]["ssm"], core.cache["ssm"]["conv"], *core.cache["shared_attn"].values()]
+    for t in leaves:
+        t.fill_(7)
+    core._reset_row(1)
+    for t in leaves:
+        fresh = -1 if t is core.cache["shared_attn"]["pos"] else 0
+        assert bool((t[:, 1] == fresh).all()) and bool((t[:, [0, 2]] == 7).all())
+    one = {"ssm": {k: torch.full_like(v[:, :1], 3) for k, v in core.cache["ssm"].items()},
+           "shared_attn": {k: torch.full_like(v[:, :1], 5) for k, v in core.cache["shared_attn"].items()}}
+    core._splice(one, 2)
+    assert bool((core.cache["ssm"]["conv"][:, 2] == 3).all()) and bool((core.cache["shared_attn"]["k"][:, 2] == 5).all())
+    assert bool((core.cache["ssm"]["ssm"][:, 0] == 7).all())
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_launcher_serves_ssm_and_hybrid_on_the_cpu(arch, capsys):
+    rc = serve_main(["--arch", arch, "--device", "cpu", "--requests", "4", "--clients", "2", "--slots", "2",
+                     "--max-new", "3", "--prompt-len", "20"])
     assert rc == 0
     assert "requests=4/4" in capsys.readouterr().out

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the serving time goes on an NVIDIA card: the PyTorch port's
-prefill and decode step at full ``tinyllama-1.1b`` width, under
+prefill and decode step of one model at full width, under
 ``torch.profiler``.
 
 Run from the root of a checkout, on a machine with a card:
 
-    python3 tools/torch_serve_profile.py [--out build/torch_serve_profile]
+    python3 tools/torch_serve_profile.py [--arch tinyllama-1.1b] [--out build/torch_serve_profile]
+
+``--arch`` takes any model the port serves: ``tinyllama-1.1b`` (the
+default), ``mamba2-130m`` or ``zamba2-1.2b``.
 
 It builds the model (bf16, random weights from a fixed seed), fills an
 ``InferenceServer`` (8 slots, 2048-token context, collective hand-off)
@@ -14,7 +17,8 @@ with 8 requests of 512 prompt tokens, then profiles (1) one prefill of a
 decode over the 8 slots.  For each window it prints the host wall time,
 the summed device time of the kernels (one stream, so they do not
 overlap), the number of kernels, the device busy share (device time over
-wall time) and the kernels that took the most device time.  The profiler
+wall time), the share of the port's own kernels (flash attention, the SSD
+chunk scan) and the kernels that took the most device time.  The profiler
 adds host time to every operator, so the walls here are upper bounds;
 ``chip_smoke.py`` reports the serving walls without it.  Chrome traces go
 to ``--out``.  Without a card it exits non-zero.
@@ -30,11 +34,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
+# device-side names of the port's hand-written kernels (csrc/*.cu)
+PORT_KERNELS = {"flash_attention": "attn_fwd_kernel", "ssd_chunk_kernel": "ssd_chunk_kernel"}
+
+
 def report(title: str, prof, wall_s: float, top: int = 12) -> None:
     """Host wall time, the device kernels' summed time (one stream, so they
-    do not overlap), their ratio (the device busy share), and the kernels
-    that took the most device time.  Only device-side events are summed:
-    the operators that launch them carry the same time again."""
+    do not overlap), their ratio (the device busy share), each port
+    kernel's share, and the kernels that took the most device time.  Only
+    device-side events are summed: the operators that launch them carry
+    the same time again."""
     from torch.autograd import DeviceType
 
     rows = [(e.key, e.device_time_total, e.count) for e in prof.key_averages()
@@ -46,12 +55,18 @@ def report(title: str, prof, wall_s: float, top: int = 12) -> None:
     if not rows:
         print("   no device time in the profile: device busy share not measured")
         return
+    for name, symbol in PORT_KERNELS.items():
+        mine = [r for r in rows if symbol in r[0]]
+        us = sum(r[1] for r in mine)
+        print(f"   port kernel {name}: {us / 1e3} ms x{sum(r[2] for r in mine)} "
+              f"share={us / 1e6 / device_s if device_s else float('nan')}")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"   {us / 1e3:10.4f} ms {us / 1e6 / device_s:7.2%} x{count:<5d} {key[:100]}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--out", default="build/torch_serve_profile")
     args = ap.parse_args()
 
@@ -70,7 +85,8 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip())
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    arch = get_config("tinyllama-1.1b")
+    arch = get_config(args.arch)
+    print(f"arch={arch.name}")
     params = init_params(torch.Generator(device="cuda").manual_seed(0), arch)
     gen = torch.Generator(device="cuda").manual_seed(1)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -88,7 +104,7 @@ def main() -> int:
                 int(torch.argmax(logits[0, -1]))
                 wall = time.perf_counter() - t0
         report(f"prefill S={s}", prof, wall)
-        prof.export_chrome_trace(str(out / f"torch_serve_profile_prefill_{s}.json"))
+        prof.export_chrome_trace(str(out / f"torch_serve_profile_{arch.name}_prefill_{s}.json"))
 
     # (2) batched decode of 8 slots through the server's engine step
     server = InferenceServer(arch, params, ServeConfig(slots=8, context=2048, max_prefill=1024, transport="collective"))
@@ -108,7 +124,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report(f"decode, {server.steps - steps0} engine steps of 8 slots", prof, wall)
-    prof.export_chrome_trace(str(out / "torch_serve_profile_decode.json"))
+    prof.export_chrome_trace(str(out / f"torch_serve_profile_{arch.name}_decode.json"))
     server.run_until_idle()
     return 0
 
