@@ -14,14 +14,18 @@ the JAX package.  In order, it:
    the reference's test shapes and at the shapes the serving paths give
    it, and the SSD kernel's route through ``ssd_chunked`` at a ragged S;
 3. for each served model, ``tinyllama-1.1b`` (dense), ``mamba2-130m``
-   (SSM) and ``zamba2-1.2b`` (hybrid), at full width (bf16, random weights
-   from a fixed seed): holds its prefill logits through the kernels
-   against the same prefill with every kernel's plain version swapped in,
-   and both against the same weights in f32 through the plain versions;
+   (SSM), ``zamba2-1.2b`` (hybrid) and ``deepseek-moe-16b`` (MoE), at full
+   width (bf16, random weights from a fixed seed): holds its prefill
+   logits through the kernels against the same prefill with every
+   kernel's plain version swapped in, and both against the same weights
+   in f32 through the plain versions (for deepseek, whose 16.9 B
+   parameters have no room for an f32 copy, on its first 4 layers; its
+   routing amplifies last-bit differences, so the gated comparisons
+   replay one run's routing into the others, see ``prefill_check``);
 4. then serves 16 requests from 2 client threads through
    ``InferenceServer`` over the collective comm hand-off, with every
    kernel's launch count set to 0 just before and read just after, and
-   checks each kernel's launches on that path;
+   checks each kernel's launches on that path, prefill and decode;
 5. times each kernel, its plain version and the library yardstick for the
    same function, with CUDA events;
 6. prints one JSON line of the kernels and, last, the device line.
@@ -64,6 +68,8 @@ RAGGED_CASE = (1, 200, 32, 4, 64, True, 0, 0, "bfloat16")
 # zamba2-1.2b's shared block: H == KV (no GQA), kind swa with its 4096
 # window, at the longest prompt it serves and at a ragged one
 ZAMBA2_CASES = [(1, 1024, 32, 32, 64, True, 4096, 0, "bfloat16"), (1, 777, 32, 32, 64, True, 4096, 0, "bfloat16")]
+# deepseek-moe-16b: H == KV = 16 heads of 128, full causal attention
+DEEPSEEK_CASES = [(1, 1024, 16, 16, 128, True, 0, 0, "bfloat16"), (1, 777, 16, 16, 128, True, 0, 0, "bfloat16")]
 # 5e-5 at f32 (full-f32 products, only the summation order differs);
 # 4e-2 at bf16 (the kernel rounds p to bf16 before PV, the plain version
 # keeps f32 to the end): the reference's own tolerances
@@ -102,6 +108,27 @@ SSD_TOL = {"float32": 1e-4, "bfloat16": 2.0**-7}
 SSD_STATE_REL_TOL = 1e-4
 SSD_CHUNKED_REL_TOL = 2.0**-6
 
+# (E, C, D, F, dtype): the reference's GMM_CASES (tests/test_kernels.py),
+# then deepseek-moe-16b's expert products: a 1024-token prefill (capacity
+# ceil(1024 * 6 / 64 * 1.25) = 120) through gate/up and down, and a decode
+# step of 8 slots (capacity 4 a row, laid out as E x 32 rows)
+GMM_CASES = [
+    (4, 256, 512, 384, "float32"),
+    (2, 128, 128, 128, "float32"),
+    (8, 128, 256, 128, "bfloat16"),
+    (1, 512, 1024, 256, "float32"),
+]
+GMM_PREFILL_UP = (64, 120, 2048, 1408, "bfloat16")
+GMM_PREFILL_DOWN = (64, 120, 1408, 2048, "bfloat16")
+GMM_DECODE = (64, 32, 2048, 1408, "bfloat16")
+# f32: 1e-4, the reference's own.  bf16: both versions sum in f32 and round
+# to bf16 once, so an output may differ by rounding at the boundary: 2 bf16
+# ulps (2^-7) of max |out| (the reference's absolute 5e-2 means nothing at
+# these magnitudes: with the 1/sqrt(E) init, expert outputs reach hundreds)
+GMM_TOL = {"float32": 1e-4, "bfloat16": 2.0**-7}
+# deepseek's f32 gate runs on its first layers only (see prefill_check)
+DEEPSEEK_F32_LAYERS = 4
+
 PROMPT_LENS = [128, 200, 256, 333, 384, 512, 640, 700, 768, 896, 1000, 1024, 129, 455, 960, 777]
 N_CLIENTS = 2
 MAX_NEW = 32
@@ -139,12 +166,12 @@ def attention_inputs(case, gen):
     return q, k, v
 
 
-def check_attention(flash_attention, attention_plain, gen) -> dict:
+def check_attention(flash_attention, attention_plain, gen, cases) -> dict:
     """Phase 2: kernel vs plain on every case; returns {case: max_abs_err}."""
     import torch
 
     errs = {}
-    for case in FLASH_CASES + [SLICE_CASE, RAGGED_CASE] + ZAMBA2_CASES:
+    for case in cases:
         _, _, _, _, _, causal, window, chunk, dtype = case
         q, k, v = attention_inputs(case, gen)
         out = flash_attention(q, k, v, causal=causal, window=window, chunk=chunk)
@@ -211,6 +238,51 @@ def check_ssd(ssd_chunk_kernel, ssd_chunk_plain, gen) -> dict:
     return errs
 
 
+def gmm_inputs(case, gen):
+    """x ~ N(0,1); w ~ 0.05·N(0,1) at the reference's cases (its test's
+    scale), N(0,1)/sqrt(E) at deepseek's (the model's init)."""
+    import torch
+
+    e, c, d, f, dtype = case
+    dt = getattr(torch, dtype)
+    w_scale = 0.05 if case in GMM_CASES else 1.0 / math.sqrt(e)
+    x = torch.randn((e, c, d), generator=gen, device="cuda").to(dt)
+    w = (torch.randn((e, d, f), generator=gen, device="cuda") * w_scale).to(dt)
+    return x, w
+
+
+def check_gmm(grouped_matmul, grouped_matmul_plain, gen) -> dict:
+    """Phase 2: the grouped matmul vs its plain version; returns {case: max_abs_err}."""
+    import torch
+
+    errs = {}
+    for case in GMM_CASES + [GMM_PREFILL_UP, GMM_PREFILL_DOWN, GMM_DECODE]:
+        dtype = case[-1]
+        x, w = gmm_inputs(case, gen)
+        out = grouped_matmul(x, w)
+        torch.cuda.synchronize()
+        ref = grouped_matmul_plain(x, w)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = GMM_TOL[dtype] * (1.0 if dtype == "float32" else ref.float().abs().max().item())
+        ok = out.dtype == x.dtype and out.shape == ref.shape and math.isfinite(err) and err <= tol
+        print(f"grouped_matmul {case}: max_abs_err={err} tol={tol} {'ok' if ok else 'MISS'}")
+        if not ok:
+            fail(f"grouped_matmul disagrees with grouped_matmul_plain at {case}: {err}")
+        errs[case] = err
+    return errs
+
+
+def gmm_bound_ms(case) -> tuple:
+    """Least time for the work: x and w read once and out written once;
+    2 operations per multiply-add, E·C·D·F of them."""
+    e, c, d, f, dtype = case
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = item * e * (c * d + d * f + c * f)
+    flops = 2 * e * c * d * f
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def check_ssd_chunked_ragged(ops, ssd_chunk_plain, gen) -> None:
     """Phase 2: ``ssd_chunked`` at a ragged S through the kernel vs the same
     call with the plain version swapped in (mamba2-130m's widths, bf16)."""
@@ -247,16 +319,52 @@ class plain_kernels:
 
     def __enter__(self):
         from repro_torch.kernels.flash_attention import attention_plain
+        from repro_torch.kernels.moe_gmm import grouped_matmul_plain
         from repro_torch.kernels.ssd_scan import ssd_chunk_plain
 
-        self.saved = self.ops.attention, self.ops.ssd_chunk
+        self.saved = self.ops.attention, self.ops.ssd_chunk, self.ops.expert_ffn_matmul
         self.ops.attention = lambda q, k, v, **kw: attention_plain(q, k, v, **kw)
         self.ops.ssd_chunk = ssd_chunk_plain
+        self.ops.expert_ffn_matmul = grouped_matmul_plain
         return self
 
     def __exit__(self, *exc):
-        self.ops.attention, self.ops.ssd_chunk = self.saved
+        self.ops.attention, self.ops.ssd_chunk, self.ops.expert_ffn_matmul = self.saved
         return False
+
+
+class routes:
+    """Within the block, every MoE layer's routing (expert ids, positions,
+    keep mask, gates, capacity, aux) is appended to ``self.routes`` in call
+    order; given ``replay`` (another block's ``routes``), each layer takes
+    the replayed routing in that order in place of its own."""
+
+    def __init__(self, replay=None):
+        self.replay, self.routes = replay, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.real = moe, moe._route
+
+        def route(p, x, cfg):
+            out = self.replay[len(self.routes)] if self.replay is not None else self.real(p, x, cfg)
+            self.routes.append(out)
+            return out
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.real
+        return False
+
+
+def routing_flips(a, b) -> str:
+    """How many (token, slot) expert choices differ between two runs."""
+    n = sum(int((x[0] != y[0]).sum()) for x, y in zip(a, b))
+    total = sum(x[0].numel() for x in a)
+    return f"{n} of {total} (token, slot) routing choices differ over {len(a)} MoE layers"
 
 
 def ssd_yardstick(a, x, b, c):
@@ -308,42 +416,75 @@ def prefill_logits(arch, params, prompt):
     return logits
 
 
-def prefill_check(arch, params, prompt, ops, f32_cap) -> int:
+def prefill_check(arch, params, prompt, ops, f32_cap, f32_layers=None) -> int:
     """Phase 3: full-width prefill logits through the kernels against the
-    same prefill with every kernel's plain version swapped in, and both
-    against the same weights in f32 through the plain versions (see
-    F32_MARGIN); returns the kernel prefill's argmax (the first token the
-    server must emit)."""
+    same prefill with every kernel's plain version swapped in (within
+    LOGIT_REL_TOL of max |logit|), and both against the same weights in
+    f32 through the plain versions (see F32_MARGIN).  With ``f32_layers``
+    the f32 comparison runs on the model cut to its first ``f32_layers``
+    layers (params sliced from the full tree), all three prefills again.
+
+    A MoE model's routing amplifies a last-bit difference: one flipped
+    expert choice moves the queue positions behind it and so which slots
+    the capacity drops.  So for a MoE model the plain run first runs free,
+    and its distance and the routing choices that differ are printed; the
+    gated comparisons then replay one run's routing into the others (the
+    kernel run's into the plain run, the f32 run's into both bf16 runs),
+    so that they differ only by the arithmetic the kernels replace.
+    Returns the full kernel prefill's argmax (the first token the server
+    must emit)."""
     import torch
 
-    logits_k = prefill_logits(arch, params, prompt)
-    with plain_kernels(ops):
-        logits_p = prefill_logits(arch, params, prompt)
-        logits_32 = prefill_logits(arch.variant(dtype="float32"), _map(params, lambda t: t.float()), prompt)
-    torch.cuda.empty_cache()
+    with routes() as rk:
+        logits_k = prefill_logits(arch, params, prompt)
     if logits_k.shape != (1, 1, arch.vocab_size) or not torch.isfinite(logits_k).all():
         fail(f"{arch.name}: prefill logits malformed: shape {tuple(logits_k.shape)}")
+    first_tok = int(torch.argmax(logits_k[0, -1]))
+    moe = bool(rk.routes)
+    if moe:
+        with plain_kernels(ops), routes() as rp:
+            logits_p = prefill_logits(arch, params, prompt)
+        free = (logits_k.float() - logits_p.float()).abs().max().item() / logits_p.float().abs().max().item()
+        print(f"{arch.name}: prefill logits (S={prompt.shape[1]}) kernels vs plain, routing free: rel={free}; "
+              + routing_flips(rk.routes, rp.routes))
+    with plain_kernels(ops), routes(replay=rk.routes if moe else None):
+        logits_p = prefill_logits(arch, params, prompt)
     scale = logits_p.float().abs().max().item()
     lerr = (logits_k.float() - logits_p.float()).abs().max().item()
-    print(f"{arch.name}: prefill logits (S={prompt.shape[1]}) kernels vs plain: max_abs_err={lerr} "
-          f"max|logit|={scale} rel={lerr / scale} tol={LOGIT_REL_TOL}")
+    print(f"{arch.name}: prefill logits (S={prompt.shape[1]}, {arch.n_layers} layers) kernels vs plain"
+          f"{', routing of the kernel run' if moe else ''}: max_abs_err={lerr} max|logit|={scale} "
+          f"rel={lerr / scale} tol={LOGIT_REL_TOL}")
     if not lerr <= LOGIT_REL_TOL * scale:
         fail(f"{arch.name}: full-width prefill through the kernels disagrees with the plain versions: {lerr} vs {scale}")
+    if f32_layers is not None:
+        arch = arch.variant(n_layers=f32_layers)
+        params = dict(params, layers=_map(params["layers"], lambda t: t[:f32_layers]))
+    with plain_kernels(ops), routes() as r32:
+        logits_32 = prefill_logits(arch.variant(dtype="float32"), _map(params, lambda t: t.float()), prompt)
+    if moe or f32_layers is not None:  # both bf16 runs again, on the f32 run's routing
+        with routes(replay=r32.routes if moe else None):
+            logits_k = prefill_logits(arch, params, prompt)
+        with plain_kernels(ops), routes(replay=r32.routes if moe else None):
+            logits_p = prefill_logits(arch, params, prompt)
+    torch.cuda.empty_cache()
     scale32 = logits_32.abs().max().item()
     rel_k = (logits_k.float() - logits_32).abs().max().item() / scale32
     rel_p = (logits_p.float() - logits_32).abs().max().item() / scale32
-    print(f"{arch.name}: prefill logits vs f32 (plain versions, max|logit|={scale32}): kernels rel={rel_k} "
+    print(f"{arch.name}: prefill logits vs f32 ({arch.n_layers} layers, plain versions"
+          f"{', routing of the f32 run' if moe else ''}, max|logit|={scale32}): kernels rel={rel_k} "
           f"plain rel={rel_p} tol=min(plain + {F32_MARGIN}, {f32_cap})")
     if not (math.isfinite(rel_k) and rel_k <= rel_p + F32_MARGIN and rel_k <= f32_cap):
         fail(f"{arch.name}: the kernel prefill is {rel_k} of max|logit| from f32, the plain one {rel_p}")
-    return int(torch.argmax(logits_k[0, -1]))
+    return first_tok
 
 
-def serve_path(arch, params, prompt, first_tok, kernels, want) -> dict:
+def serve_path(arch, params, prompt, first_tok, kernels, per_prefill, per_step) -> dict:
     """Phase 4: 16 requests from 2 client threads through the collective
     hand-off, 8 slots (so slots are recycled); every kernel's count is set
-    to 0 just before and read just after.  ``want`` maps a kernel's name to
-    the launches this path must make.  Returns the launches."""
+    to 0 just before and read just after.  A kernel must launch
+    ``per_prefill[name]`` times in each single-shot prefill and
+    ``per_step[name]`` times in each batched decode step.  Returns the
+    launches."""
     import torch
 
     from repro_torch.serve import InferenceServer, ServeConfig
@@ -393,21 +534,33 @@ def serve_path(arch, params, prompt, first_tok, kernels, want) -> dict:
         fail(f"{arch.name}: requests {bad} came back with a wrong number of tokens or out-of-vocab tokens")
     if reqs[-1].out_tokens[0] != first_tok:
         fail(f"{arch.name}: served first token {reqs[-1].out_tokens[0]} != the phase-3 prefill's argmax {first_tok}")
-    for name, n in want.items():
+    prefills, steps = server.core.prefill_calls, server.core.steps
+    if prefills != len(prompts):
+        fail(f"{arch.name}: {prefills} single-shot prefills for {len(prompts)} requests")
+    for name in kernels:
+        n = per_prefill[name] * prefills + per_step[name] * steps
         if launches[name] != n:
-            fail(f"{arch.name}: {name} launched {launches[name]} times, want {n} on this path")
+            fail(f"{arch.name}: {name} launched {launches[name]} times, want {n} on this path "
+                 f"({per_prefill[name]} x {prefills} prefills + {per_step[name]} x {steps} decode steps)")
     return launches
 
 
 # The served models, in order; the launches each kernel must make per
-# prefill on its path: one flash attention per attention layer (zamba2's
-# shared block runs at layers 0, 6, ..., 36: 7), one SSD chunk scan per SSM
-# layer; and the cap on the kernel prefill's distance from f32 (the plain
-# bf16 run measured 1.46%, 1.83% and 4.23% of max |logit| on an H100).
+# prefill and per decode step on its path: one flash attention per
+# attention layer in a prefill (zamba2's shared block runs at layers 0, 6,
+# ..., 36: 7), one SSD chunk scan per SSM layer in a prefill, three grouped
+# matmuls (gate, up, down) per MoE layer in every model call; the cap on
+# the kernel prefill's distance from f32, about twice the plain bf16 run's
+# own as measured on an H100 (1.46%, 1.83%, 4.23% and, for deepseek on 4
+# layers on the f32 run's routing, 1.39% of max |logit|); and the layers of
+# the f32 comparison (all, or deepseek's first DEEPSEEK_F32_LAYERS).
+NO_LAUNCH = {"flash_attention": 0, "ssd_chunk_kernel": 0, "grouped_matmul": 0}
 PATHS = [
-    ("tinyllama-1.1b", {"flash_attention": 22, "ssd_chunk_kernel": 0}, 3e-2),
-    ("mamba2-130m", {"flash_attention": 0, "ssd_chunk_kernel": 24}, 4e-2),
-    ("zamba2-1.2b", {"flash_attention": 7, "ssd_chunk_kernel": 38}, 8e-2),
+    ("tinyllama-1.1b", dict(NO_LAUNCH, flash_attention=22), NO_LAUNCH, 3e-2, None),
+    ("mamba2-130m", dict(NO_LAUNCH, ssd_chunk_kernel=24), NO_LAUNCH, 4e-2, None),
+    ("zamba2-1.2b", dict(NO_LAUNCH, flash_attention=7, ssd_chunk_kernel=38), NO_LAUNCH, 8e-2, None),
+    ("deepseek-moe-16b", dict(NO_LAUNCH, flash_attention=28, grouped_matmul=84), dict(NO_LAUNCH, grouped_matmul=84),
+     3e-2, DEEPSEEK_F32_LAYERS),
 ]
 
 
@@ -427,13 +580,15 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+    from repro_torch.kernels.moe_gmm import grouped_matmul, grouped_matmul_plain
     from repro_torch.kernels.ssd_scan import ssd_chunk_kernel, ssd_chunk_plain
     from repro_torch.models import init_params
 
     # full-f32 products for the f32 comparisons, stated rather than assumed
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = {"flash_attention": flash_attention, "ssd_chunk_kernel": ssd_chunk_kernel}
+    kernels = {"flash_attention": flash_attention, "ssd_chunk_kernel": ssd_chunk_kernel,
+               "grouped_matmul": grouped_matmul}
 
     # 1. the card and the build ----------------------------------------------
     smi = subprocess.run(
@@ -442,18 +597,21 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     t0 = time.monotonic()
-    build.build(["flash_attention", "ssd_scan"])
+    build.build(["flash_attention", "ssd_scan", "moe_gmm"])
     print(f"kernel build: {time.monotonic() - t0} s")
 
     # 2. every kernel against its plain version ------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = check_attention(flash_attention, attention_plain, gen)
+    errs = check_attention(flash_attention, attention_plain, gen, FLASH_CASES + [SLICE_CASE, RAGGED_CASE] + ZAMBA2_CASES)
     ssd_errs = check_ssd(ssd_chunk_kernel, ssd_chunk_plain, gen)
     check_ssd_chunked_ragged(ops, ssd_chunk_plain, gen)
+    gen_moe = torch.Generator(device="cuda").manual_seed(13)  # leaves gen's draws for the earlier paths as they were
+    check_attention(flash_attention, attention_plain, gen_moe, DEEPSEEK_CASES)
+    gmm_errs = check_gmm(grouped_matmul, grouped_matmul_plain, gen_moe)
 
     # 3./4. each model: full-width prefill check, then serving ----------------
     by_path = {}
-    for name, per_prefill, f32_cap in PATHS:
+    for name, per_prefill, per_step, f32_cap, f32_layers in PATHS:
         arch = get_config(name)
         t0 = time.monotonic()
         params = init_params(torch.Generator(device="cuda").manual_seed(0), arch)
@@ -461,9 +619,8 @@ def main() -> int:
         n_params = sum(t.numel() for t in _leaves(params))
         print(f"{name}: {n_params} params ({arch.dtype}) built in {time.monotonic() - t0} s")
         prompt = torch.randint(0, arch.vocab_size, (1, 777), generator=gen, device="cuda")
-        first_tok = prefill_check(arch, params, prompt, ops, f32_cap)
-        want = {k: n * len(PROMPT_LENS) for k, n in per_prefill.items()}
-        by_path[name] = serve_path(arch, params, prompt, first_tok, kernels, want)
+        first_tok = prefill_check(arch, params, prompt, ops, f32_cap, f32_layers)
+        by_path[name] = serve_path(arch, params, prompt, first_tok, kernels, per_prefill, per_step)
         del params
         torch.cuda.empty_cache()
 
@@ -490,7 +647,30 @@ def main() -> int:
         print(f"ssd_chunk_kernel {case}: kernel={t_kernel} ms (again {t_kernel2} ms) plain={t_plain} ms "
               f"einsum_chain (model plain branch)={t_lib} ms bound={sbound} ms ({sbound_by})")
 
+    for case in DEEPSEEK_CASES[:1]:  # deepseek's attention (D=128) at S=1024
+        q, k, v = attention_inputs(case, gen_moe)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        t_kernel = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
+        t_plain = cuda_ms(lambda: attention_plain(q, k, v, causal=True))
+        t_lib = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+        t_kernel2 = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
+        abound, abound_by = attention_bound_ms(case)
+        print(f"flash_attention {case}: kernel={t_kernel} ms (again {t_kernel2} ms) plain={t_plain} ms "
+              f"sdpa={t_lib} ms bound={abound} ms ({abound_by})")
+    gmm_ms = {}
+    for case in (GMM_PREFILL_UP, GMM_PREFILL_DOWN, GMM_DECODE):
+        x, w = gmm_inputs(case, gen_moe)
+        t_kernel = cuda_ms(lambda: grouped_matmul(x, w))
+        t_plain = cuda_ms(lambda: grouped_matmul_plain(x, w))
+        t_lib = cuda_ms(lambda: torch.bmm(x, w))
+        t_kernel2 = cuda_ms(lambda: grouped_matmul(x, w))
+        gbound, gbound_by = gmm_bound_ms(case)
+        gmm_ms[case] = (t_kernel, t_plain, t_lib, gbound, gbound_by)
+        print(f"grouped_matmul {case}: kernel={t_kernel} ms (again {t_kernel2} ms) plain={t_plain} ms "
+              f"torch.bmm={t_lib} ms bound={gbound} ms ({gbound_by})")
+
     # 6. the record ---------------------------------------------------------------
+    g_kernel, g_plain, g_lib, gbound, gbound_by = gmm_ms[GMM_PREFILL_UP]
     t_kernel, t_plain, t_lib, sbound, sbound_by = ssd_ms[SSD_MAMBA2]
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
@@ -519,6 +699,20 @@ def main() -> int:
         "bound_ms": sbound,
         "bound_by": sbound_by,
         "library_ms": t_lib,
+        "check": "pass",
+    }, {
+        "name": "grouped_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:28",
+        "launches": sum(p["grouped_matmul"] for p in by_path.values()),
+        "launches_by_path": {n: p["grouped_matmul"] for n, p in by_path.items()},
+        "max_abs_err": gmm_errs[GMM_PREFILL_UP],
+        "ms": g_kernel,
+        "plain_ms": g_plain,
+        "bound_ms": gbound,
+        "bound_by": gbound_by,
+        "library_ms": g_lib,
         "check": "pass",
     }]}))
     print(json.dumps({"ok": True, "device": {

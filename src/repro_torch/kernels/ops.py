@@ -11,9 +11,14 @@ from typing import Tuple
 import torch
 
 from .flash_attention import attention_plain, flash_attention
+from .moe_gmm import grouped_matmul, grouped_matmul_plain
 from .ssd_scan import ssd_chunk_kernel, ssd_chunk_plain
 
-__all__ = ["attention", "attention_plain", "flash_attention", "ssd_chunk", "ssd_chunk_kernel", "ssd_chunk_plain"]
+__all__ = [
+    "attention", "attention_plain", "flash_attention",
+    "expert_ffn_matmul", "grouped_matmul", "grouped_matmul_plain",
+    "ssd_chunk", "ssd_chunk_kernel", "ssd_chunk_plain",
+]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -26,3 +31,8 @@ def ssd_chunk(a_dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor, c: torch.Ten
     """SSD intra-chunk block: a_dt (B,H,nc,Q), x (B,H,nc,Q,P), b/c
     (B,G,nc,Q,N) → (y_diag (B,H,nc,Q,P), chunk states (B,H,nc,P,N) f32)."""
     return ssd_chunk_kernel(a_dt, x, b, c)
+
+
+def expert_ffn_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert FFN product: x (E,C,D) × w (E,D,F) → (E,C,F) in x's dtype."""
+    return grouped_matmul(x, w)

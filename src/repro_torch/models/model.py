@@ -1,7 +1,7 @@
-"""LM assembly: the dense decoder, SSM and hybrid branches.
+"""LM assembly: the dense decoder, MoE, SSM and hybrid branches.
 
-Port of the dense, SSM (mamba2) and hybrid (zamba2) branches of
-``repro/models/model.py``:
+Port of the dense, MoE (deepseek-moe), SSM (mamba2) and hybrid (zamba2)
+branches of ``repro/models/model.py``:
 
 * ``init_params(gen, cfg)``            — stacked per-layer params (leading ``L``)
 * ``init_cache(cfg, batch, context)``   — stacked decode cache
@@ -15,10 +15,11 @@ tensors, so cache writes land in the stacked cache in place (where the JAX
 package donates it).  The hybrid's shared attention+MLP block runs after
 every ``attn_every``-th layer on its own slice ``idx // attn_every`` of
 the stacked ``shared_attn`` cache, where the reference has ``lax.cond``.
-Other families (MLA, MoE, encoder-decoder, VLM) raise
-``NotImplementedError`` until their slice is ported (ROADMAP.md, queue A);
-so do chunked-local attention layers, whose only configuration
-(``llama4-scout``) is a MoE.
+A MoE layer's FFN is :func:`repro_torch.models.moe.moe_apply` (its aux
+loss is dropped, as the reference's serving path drops it).  Other
+families (MLA, encoder-decoder, VLM) raise ``NotImplementedError`` until
+their slice is ported (ROADMAP.md, queue A); so do chunked-local
+attention layers (``llama4-scout``).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import Params, dense_init, embed_init, ffn_apply, ffn_init, rms_norm
 
@@ -41,14 +43,14 @@ def model_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    plain = not cfg.is_moe and not cfg.is_encdec and cfg.frontend == "none"
-    dense = cfg.family == "dense" and cfg.attn_kind in ("full", "swa")
+    plain = not cfg.is_encdec and cfg.frontend == "none"
+    decoder = cfg.family in ("dense", "moe") and cfg.attn_kind in ("full", "swa")
     hybrid = cfg.family == "hybrid" and cfg.attn_kind == "swa" and cfg.attn_every > 0
-    if not (plain and (dense or cfg.family == "ssm" or hybrid)):
+    if not (plain and (decoder or cfg.family == "ssm" or hybrid)):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with {cfg.attn_kind!r} attention is not "
-            "ported yet; the port has the dense GQA decoder, the SSM and the SWA hybrid "
-            "only (ROADMAP.md, queue A)"
+            "ported yet; the port has the GQA decoder (dense or MoE, full or SWA attention), "
+            "the SSM and the SWA hybrid only (ROADMAP.md, queue A)"
         )
 
 
@@ -59,22 +61,45 @@ def _index(tree: Any, i: int) -> Any:
     return tree[i]
 
 
-def _stack(trees: list) -> Any:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _map(tree: Any, fn) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _put(stacked: Any, tree: Any, i: int) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _put(stacked[k], v, i)
+    else:
+        stacked[i] = tree
+
+
+def _init_stacked(make, n: int) -> Any:
+    """``n`` trees from ``make()`` stacked on a leading dim, drawn in order
+    and copied one at a time into preallocated leaves, so the peak is the
+    stack plus one tree (a list of trees and their stack would hold two
+    copies of the weights)."""
+    first = make()
+    stacked = _map(first, lambda t: t.new_empty((n,) + t.shape))
+    _put(stacked, first, 0)
+    del first
+    for i in range(1, n):
+        _put(stacked, make(), i)
+    return stacked
 
 
 # ------------------------------------------------------------------- params
 def _block_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
-    """Pre-norm attention + FFN: a dense layer, or the hybrid's shared block."""
+    """Pre-norm attention + FFN (``moe`` in a MoE layer): a dense or MoE
+    layer, or the hybrid's shared block."""
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=gen.device)  # noqa: E731
-    return {
-        "ln1": ones(),
-        "attn": attn.attn_init(gen, cfg, dtype),
-        "ln2": ones(),
-        "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff, dtype, gated=cfg.gated_ffn),
-    }
+    p = {"ln1": ones(), "attn": attn.attn_init(gen, cfg, dtype), "ln2": ones()}
+    if cfg.is_moe:
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype)
+    else:
+        p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, dtype, gated=cfg.gated_ffn)
+    return p
 
 
 def _layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
@@ -96,7 +121,7 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype, scale=1.0 / math.sqrt(cfg.d_model))
-    p["layers"] = _stack([_layer_init(gen, cfg, dtype) for _ in range(cfg.n_layers)])
+    p["layers"] = _init_stacked(lambda: _layer_init(gen, cfg, dtype), cfg.n_layers)
     if cfg.family == "hybrid":
         p["shared_block"] = _block_init(gen, cfg, dtype)
     return p
@@ -125,7 +150,7 @@ def init_cache(cfg: ArchConfig, batch: int, context: int, device: Union[str, tor
     _check_ported(cfg)
     dtype, dev = model_dtype(cfg), resolve_device(device)
     L = cfg.n_layers
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return {"kv": _stacked(attn.init_kv_cache(cfg, batch, context, dtype, dev), L)}
     cache = {"ssm": _stacked(ssm_mod.init_ssm_cache(cfg, batch, dtype, dev), L)}
     if cfg.family == "hybrid":
@@ -149,10 +174,17 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cac
         else:
             a, _ = attn.attention_prefill(lp["attn"], hn, cfg, _index(cache["kv"], i), cfg.attn_kind, cfg.window)
             x = x + a
-            x = x + ffn_apply(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), gated=cfg.gated_ffn)
+            x = x + _channel(lp, cfg, rms_norm(x, lp["ln2"], cfg.norm_eps))
         if "shared_block" in params and i % cfg.attn_every == 0:
             x = _shared_block(params["shared_block"], cfg, x, _index(cache["shared_attn"], i // cfg.attn_every))
     return _logits(params, cfg, x[:, -1:, :]), cache
+
+
+def _channel(lp: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    """A layer's channel mixer: the MoE FFN or the dense FFN."""
+    if "moe" in lp:
+        return moe_mod.moe_apply(lp["moe"], h, cfg)[0]
+    return ffn_apply(lp["ffn"], h, gated=cfg.gated_ffn)
 
 
 def _shared_block(sp: Params, cfg: ArchConfig, x: torch.Tensor, sa: Params, positions: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -186,7 +218,7 @@ def decode_step(
         else:
             a, _ = attn.attention_decode(lp["attn"], hn, cfg, _index(cache["kv"], i), positions, cfg.attn_kind, cfg.window)
             x = x + a
-            x = x + ffn_apply(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), gated=cfg.gated_ffn)
+            x = x + _channel(lp, cfg, rms_norm(x, lp["ln2"], cfg.norm_eps))
         if "shared_block" in params and i % cfg.attn_every == 0:
             x = _shared_block(params["shared_block"], cfg, x, _index(cache["shared_attn"], i // cfg.attn_every), positions)
     return _logits(params, cfg, x), cache

@@ -1,0 +1,150 @@
+"""Mixture-of-Experts FFN: shared + routed experts, capacity dispatch.
+
+Port of ``repro/models/moe.py``.  Token-choice top-k routing with a
+per-expert capacity per batch row, and two dispatch implementations:
+
+* ``scatter`` (default) — tokens go into per-expert queues and are
+  gathered back; memory O(S·D + E·C·D).
+* ``einsum`` — the classic GShard dense dispatch/combine masks (B,S,E,C);
+  O(S·E·C) memory, the small-shape oracle in tests.
+
+The three expert products run through
+:func:`repro_torch.kernels.ops.expert_ffn_matmul`, the grouped-matmul
+kernel on a CUDA tensor, where the reference lowers them through einsum.
+The queues are laid out (E, B, C, D), so the kernel sees one (E, B·C, D)
+batch and reads each expert's weights once per call, however many rows
+the batch has.  Routing and capacity stay per batch row, so the rows of a
+batched decode are independent of one another.
+
+The reference scatters and gathers at positions ``pos >= C`` for dropped
+slots, which JAX drops (scatter) and clamps (gather).  Here a dropped slot
+writes to one spare row behind the queues that nothing reads, and its
+gathered row is zeroed, so every kept (expert, row, position) has exactly
+one writer: plain assignment, no atomics, deterministic.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..kernels import ops as kops
+from .layers import Params, dense_init, ffn_apply, ffn_init
+
+__all__ = ["moe_init", "moe_apply", "expert_capacity", "DISPATCH_MODES"]
+
+DISPATCH_MODES = ("scatter", "einsum")
+
+
+def expert_capacity(tokens: int, cfg: ArchConfig) -> int:
+    """Per-expert token capacity for a routing group of ``tokens`` tokens."""
+    cap = int(math.ceil(tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    return max(cap, 4)
+
+
+def moe_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
+    """The reference's tree: an f32 router (D, E), expert weights (E, D, F)
+    and (E, F, D) scaled by 1/sqrt(E) (``dense_init``'s fan-in is the first
+    dim, as in the reference), and the shared experts as one FFN of width
+    F · n_shared."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    p: Params = {
+        "router": dense_init(gen, (d, e), torch.float32),
+        "w_up": dense_init(gen, (e, d, f), dtype),
+        "w_down": dense_init(gen, (e, f, d), dtype),
+    }
+    if cfg.gated_ffn:
+        p["w_gate"] = dense_init(gen, (e, d, f), dtype)
+    if cfg.n_shared_experts:
+        p["shared"] = ffn_init(gen, d, f * cfg.n_shared_experts, dtype, gated=cfg.gated_ffn)
+    return p
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., n) bool one-hot of ``idx`` (all False outside [0, n))."""
+    return idx[..., None] == torch.arange(n, device=idx.device)
+
+
+def _route(p: Params, x: torch.Tensor, cfg: ArchConfig):
+    """Top-k routing: per-slot expert ids, in-expert positions, keep mask
+    and gates — all (B, k·S) slot-major — plus the capacity and the
+    load-balancing aux loss."""
+    b, s, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = expert_capacity(s, cfg)
+    logits = torch.einsum("bsd,de->bse", x.float(), p["router"])
+    probs = torch.softmax(logits, dim=-1)  # (B,S,E)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)  # (B,S,k), descending
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    # slot-major flattening: slot 0 of every token, then slot 1, …
+    e_idx = gate_idx.transpose(1, 2).reshape(b, k * s)  # (B,kS)
+    gates = gate_vals.transpose(1, 2).reshape(b, k * s)
+    assign = _one_hot(e_idx, e).int()  # (B,kS,E)
+    pos = ((torch.cumsum(assign, dim=1) - assign) * assign).sum(-1)  # earlier slots on the same expert
+    keep = pos < cap
+    # aux loss (Switch/GShard): E · Σ_e frac_tokens_e · mean_prob_e
+    frac_tokens = _one_hot(gate_idx[..., 0], e).float().mean(dim=(0, 1))
+    mean_probs = probs.mean(dim=(0, 1))
+    aux = e * torch.sum(frac_tokens * mean_probs)
+    return e_idx, pos, keep, gates, cap, aux
+
+
+def _queue_rows(e_idx: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor, cap: int, e: int) -> torch.Tensor:
+    """(B,kS) row of each slot in the flattened (E, B, C) queues; every
+    dropped slot gets the spare row E·B·C behind them."""
+    b = e_idx.shape[0]
+    row_of_batch = torch.arange(b, device=e_idx.device)[:, None]
+    rows = (e_idx * b + row_of_batch) * cap + pos
+    return torch.where(keep, rows, torch.full_like(rows, e * b * cap))
+
+
+def _dispatch_scatter(x: torch.Tensor, rows: torch.Tensor, cap: int, e: int) -> torch.Tensor:
+    """(B,S,D) tokens → (E,B,C,D) expert queues, one writer per kept row."""
+    b, s, d = x.shape
+    x_rep = x.repeat(1, rows.shape[1] // s, 1)  # slot-major: (B, kS, D)
+    flat = x.new_zeros((e * b * cap + 1, d))  # + the spare row of dropped slots
+    flat[rows.reshape(-1)] = x_rep.reshape(-1, d)
+    return flat[:-1].view(e, b, cap, d)
+
+
+def _combine_gather(expert_out: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor, gates: torch.Tensor, s: int) -> torch.Tensor:
+    """(E,B,C,D) expert outputs → (B,S,D) via gather + gated sum over k."""
+    e, b, cap, d = expert_out.shape
+    hit = expert_out.reshape(e * b * cap, d)[torch.where(keep, rows, 0)]  # (B,kS,D)
+    hit = torch.where(keep[..., None], hit, 0) * gates[..., None].to(hit.dtype)
+    return hit.reshape(b, -1, s, d).sum(dim=1)
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, dispatch_mode: str = "scatter") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output (B,S,D), aux_loss f32 scalar)."""
+    if dispatch_mode not in DISPATCH_MODES:
+        raise ValueError(f"moe_apply: dispatch_mode {dispatch_mode!r} not in {DISPATCH_MODES}")
+    b, s, d = x.shape
+    e = cfg.n_experts
+    e_idx, pos, keep, gates, cap, aux = _route(p, x, cfg)
+    if dispatch_mode == "scatter":
+        rows = _queue_rows(e_idx, pos, keep, cap, e)
+        expert_in = _dispatch_scatter(x, rows, cap, e)
+    else:  # einsum oracle (small shapes only)
+        slot_oh = _one_hot(pos, cap).to(x.dtype) * keep[..., None].to(x.dtype)
+        disp = _one_hot(e_idx, e).to(x.dtype)[..., None] * slot_oh[:, :, None, :]  # (B,kS,E,C)
+        x_rep = x.repeat(1, e_idx.shape[1] // s, 1)
+        expert_in = torch.einsum("bkec,bkd->ebcd", disp, x_rep).contiguous()
+    q = expert_in.view(e, b * cap, d)  # one (E, B·C, D) batch for the kernel
+    if cfg.gated_ffn:
+        h = F.silu(kops.expert_ffn_matmul(q, p["w_gate"])) * kops.expert_ffn_matmul(q, p["w_up"])
+    else:
+        h = F.gelu(kops.expert_ffn_matmul(q, p["w_up"]), approximate="tanh")
+    expert_out = kops.expert_ffn_matmul(h, p["w_down"]).view(e, b, cap, d)
+    if dispatch_mode == "scatter":
+        out = _combine_gather(expert_out, rows, keep, gates, s)
+    else:
+        comb = disp * gates[:, :, None, None].to(x.dtype)
+        out = torch.einsum("bkec,ebcd->bkd", comb, expert_out)
+        out = out.reshape(b, -1, s, d).sum(dim=1)
+    if "shared" in p:
+        out = out + ffn_apply(p["shared"], x, gated=cfg.gated_ffn)
+    return out, aux.float()

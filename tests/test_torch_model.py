@@ -1,5 +1,5 @@
-"""Port parity: the dense, SSM and hybrid decoders (``repro_torch.models``)
-and the bridge.
+"""Port parity: the dense, MoE, SSM and hybrid decoders
+(``repro_torch.models``) and the bridge.
 
 JAX-made parameters are carried across with ``params_from_jax``, so both
 packages compute the same function; prefill and decode logits must agree
@@ -7,7 +7,9 @@ within 1e-4 at float32, and so must every cache leaf (position tags
 exactly).  The JAX side runs with ``REPRO_KERNELS=pallas-interpret``, so a
 128-token prompt goes through the Pallas flash-attention kernel (in
 interpret mode) and a 13-token one through its plain path; SSM layers go
-through the Pallas SSD kernel at every prompt length."""
+through the Pallas SSD kernel at every prompt length.  The MoE layers of
+``deepseek-moe-16b`` run the reference's einsum lowering on the JAX side
+and the grouped matmul's plain version on the port's."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,7 +51,8 @@ def _assert_caches_match(jc, tc):
             assert _err(jv, tc[key]) <= TOL, key
 
 
-@pytest.fixture(scope="module", params=["tinyllama-1.1b", "qwen2-7b", "h2o-danube-3-4b", "mamba2-130m", "zamba2-1.2b"])
+@pytest.fixture(scope="module", params=["tinyllama-1.1b", "qwen2-7b", "h2o-danube-3-4b", "mamba2-130m", "zamba2-1.2b",
+                                                "deepseek-moe-16b"])
 def model(request):
     name = request.param
     jcfg = J_SMOKES[name].variant(dtype="float32")
@@ -143,7 +146,8 @@ def test_bf16_hybrid_params_cross_bit_exact():
     assert dtypes == {torch.bfloat16, torch.float32}
 
 
-@pytest.mark.parametrize("name", ["llama4-scout-17b-a16e", "minicpm3-4b", "deepseek-moe-16b", "whisper-large-v3"])
+@pytest.mark.parametrize("name", ["llama4-scout-17b-a16e", "minicpm3-4b", "whisper-large-v3"])
 def test_other_families_are_not_ported_yet(name):
+    """llama4-scout is a MoE, but its chunked-local attention is not ported."""
     with pytest.raises(NotImplementedError, match="queue A"):
         init_params(torch.Generator().manual_seed(0), SMOKES[name])

@@ -5,7 +5,8 @@
   ``repro`` (``repro_torch`` is the port).
 * Entry points run on ``cuda`` unless the caller asks for the CPU; without
   a card they raise instead of carrying on on the CPU.
-* The CUDA kernels agree with their plain versions (``gpu``-marked: need
+* The CUDA kernels (flash attention, the SSD chunk scan, the grouped
+  matmul) agree with their plain versions (``gpu``-marked: need
   a card, decided inside the test).  This file imports no JAX, so those
   tests run on a machine that has none."""
 import ast
@@ -38,8 +39,9 @@ def _imported_roots(path: Path):
 
 def test_port_files_exist():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
-    for rel in ("src/repro_torch/models/model.py", "src/repro_torch/models/ssm.py",
+    for rel in ("src/repro_torch/models/model.py", "src/repro_torch/models/ssm.py", "src/repro_torch/models/moe.py",
                 "src/repro_torch/kernels/flash_attention.py", "src/repro_torch/kernels/ssd_scan.py",
+                "src/repro_torch/kernels/moe_gmm.py",
                 "src/repro_torch/serve/server.py", "src/repro_torch/core/comm/collective.py", "chip_smoke.py"):
         assert rel in names
 
@@ -162,3 +164,67 @@ def test_cuda_ssd_kernel_matches_plain(case, dtype):
     assert torch.equal(ys, y) and torch.equal(ss, st)
     with pytest.raises(ValueError):
         ssd_chunk_kernel(a, x.transpose(-1, -2).contiguous().transpose(-1, -2), b, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case, dtype, w_scale", [
+    # (E, C, D, F): the reference's GMM_CASES (tests/test_kernels.py), at its scale
+    ((4, 256, 512, 384), torch.float32, 0.05),
+    ((2, 128, 128, 128), torch.float32, 0.05),
+    ((8, 128, 256, 128), torch.bfloat16, 0.05),
+    ((1, 512, 1024, 256), torch.float32, 0.05),
+    # deepseek-moe-16b at its init's scale 1/sqrt(E): a 1024-token prefill's
+    # gate/up and down, and a decode step of 8 slots laid out (E, 8·4, D)
+    ((64, 120, 2048, 1408), torch.bfloat16, 0.125),
+    ((64, 120, 1408, 2048), torch.bfloat16, 0.125),
+    ((64, 32, 2048, 1408), torch.bfloat16, 0.125),
+    ((3, 33, 70, 45), torch.float32, 0.05),  # ragged C, D and F
+    ((2, 3, 5, 7), torch.bfloat16, 0.05),
+])
+def test_cuda_grouped_matmul_matches_plain(case, dtype, w_scale):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.moe_gmm import grouped_matmul, grouped_matmul_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    e, c, d, f = case
+    gen = torch.Generator(device="cuda").manual_seed(sum(case))
+    x = torch.randn((e, c, d), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((e, d, f), generator=gen, device="cuda") * w_scale).to(dtype)
+    before = grouped_matmul.launches
+    out = grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches == before + 1
+    ref = grouped_matmul_plain(x, w)
+    assert out.dtype == dtype and out.shape == (e, c, f)
+    err = (out.float() - ref.float()).abs().max().item()
+    if dtype == torch.float32:  # the reference's 1e-4
+        assert err <= 1e-4
+    else:  # both round an f32 sum to bf16 once: at most 2 bf16 ulps of the largest |out|
+        assert err <= 2.0**-7 * ref.float().abs().max().item()
+    # strided views read the same as contiguous inputs, bit for bit
+    xs = x.transpose(1, 2).contiguous().transpose(1, 2)  # D-major queues
+    ws = w.transpose(1, 2).contiguous().transpose(1, 2)  # D-major weights
+    assert not xs.is_contiguous() and not ws.is_contiguous()
+    assert torch.equal(grouped_matmul(xs, ws), out)
+    assert grouped_matmul.launches == before + 2
+    with pytest.raises(ValueError):
+        grouped_matmul(x, w[:, :-1])
+    with pytest.raises(TypeError):
+        grouped_matmul(x, w.to(torch.float16))
+
+
+@pytest.mark.gpu
+def test_cuda_grouped_matmul_rows_do_not_depend_on_the_batch():
+    """The decode layout (E, B·C, D): each row's result equals the same row
+    run alone, bit for bit (the kernel sums every row over D in order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.moe_gmm import grouped_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((64, 8, 4, 256), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((64, 256, 96), generator=gen, device="cuda") / 8).to(torch.bfloat16)
+    both = grouped_matmul(q.view(64, 32, 256), w).view(64, 8, 4, 96)
+    for b in (0, 5):
+        assert torch.equal(grouped_matmul(q[:, b], w), both[:, b])

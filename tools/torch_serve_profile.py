@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with a card:
     python3 tools/torch_serve_profile.py [--arch tinyllama-1.1b] [--out build/torch_serve_profile]
 
 ``--arch`` takes any model the port serves: ``tinyllama-1.1b`` (the
-default), ``mamba2-130m`` or ``zamba2-1.2b``.
+default), ``mamba2-130m``, ``zamba2-1.2b`` or ``deepseek-moe-16b``.
 
 It builds the model (bf16, random weights from a fixed seed), fills an
 ``InferenceServer`` (8 slots, 2048-token context, collective hand-off)
@@ -18,7 +18,7 @@ decode over the 8 slots.  For each window it prints the host wall time,
 the summed device time of the kernels (one stream, so they do not
 overlap), the number of kernels, the device busy share (device time over
 wall time), the share of the port's own kernels (flash attention, the SSD
-chunk scan) and the kernels that took the most device time.  The profiler
+chunk scan, the grouped matmul) and the kernels that took the most device time.  The profiler
 adds host time to every operator, so the walls here are upper bounds;
 ``chip_smoke.py`` reports the serving walls without it.  Chrome traces go
 to ``--out``.  Without a card it exits non-zero.
@@ -35,7 +35,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 # device-side names of the port's hand-written kernels (csrc/*.cu)
-PORT_KERNELS = {"flash_attention": "attn_fwd_kernel", "ssd_chunk_kernel": "ssd_chunk_kernel"}
+PORT_KERNELS = {"flash_attention": "attn_fwd_kernel", "ssd_chunk_kernel": "ssd_chunk_kernel",
+                "grouped_matmul": "gmm_kernel"}
 
 
 def report(title: str, prof, wall_s: float, top: int = 12) -> None:
