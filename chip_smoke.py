@@ -5,14 +5,17 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's serving paths (``src/repro_torch``) and nothing of
-the JAX package.  In order, it:
+It drives the port's serving and training paths (``src/repro_torch``) and
+nothing of the JAX package.  In order, it:
 
 1. prints the card's name and power limit and builds the CUDA kernels from
    the sources in the checkout (one ``nvcc`` per source, all at once);
 2. holds every kernel against its plain PyTorch version on the card, at
    the reference's test shapes and at the shapes the serving paths give
    it, and the SSD kernel's route through ``ssd_chunked`` at a ragged S;
+   the gradient-pack kernel's wire bytes and new error feedback against
+   its plain version and the host reference ``pack_grads_q8``, bit for
+   bit, on the reference test's cases and over 10 EF steps;
 3. for each served model, ``tinyllama-1.1b`` (dense), ``mamba2-130m``
    (SSM), ``zamba2-1.2b`` (hybrid) and ``deepseek-moe-16b`` (MoE), at full
    width (bf16, random weights from a fixed seed): holds its prefill
@@ -26,9 +29,19 @@ the JAX package.  In order, it:
    ``InferenceServer`` over the collective comm hand-off, with every
    kernel's launch count set to 0 just before and read just after, and
    checks each kernel's launches on that path, prefill and decode;
-5. times each kernel, its plain version and the library yardstick for the
+5. trains ``tinyllama-1.1b``: first the train step's loss and gradients
+   through the kernels against the plain path (full width, its first
+   layers, f32 and bf16); then the full model in bf16 with int8 error
+   feedback, 8 steps on one fixed batch (the loss must fall, flash must
+   launch once a layer a step); then two data-parallel ranks pack their
+   gradients with ``make_packer("device")``, exchange the wires over the
+   port's ``CommChannel`` and average (bit for bit the direct average),
+   with every kernel's count set to 0 before the steps and read after the
+   exchange; then the pack kernel on that full-width gradient tree over 2
+   EF steps, bit for bit against its plain version and the host reference;
+6. times each kernel, its plain version and the library yardstick for the
    same function, with CUDA events;
-6. prints one JSON line of the kernels and, last, the device line.
+7. prints one JSON line of the kernels and, last, the device line.
 
 It exits non-zero, printing no result, without a card or outside a
 checkout, and on any failed check.
@@ -435,6 +448,8 @@ def prefill_check(arch, params, prompt, ops, f32_cap, f32_layers=None) -> int:
     must emit)."""
     import torch
 
+    from repro_torch.tree import tree_map
+
     with routes() as rk:
         logits_k = prefill_logits(arch, params, prompt)
     if logits_k.shape != (1, 1, arch.vocab_size) or not torch.isfinite(logits_k).all():
@@ -458,9 +473,9 @@ def prefill_check(arch, params, prompt, ops, f32_cap, f32_layers=None) -> int:
         fail(f"{arch.name}: full-width prefill through the kernels disagrees with the plain versions: {lerr} vs {scale}")
     if f32_layers is not None:
         arch = arch.variant(n_layers=f32_layers)
-        params = dict(params, layers=_map(params["layers"], lambda t: t[:f32_layers]))
+        params = dict(params, layers=tree_map(lambda t: t[:f32_layers], params["layers"]))
     with plain_kernels(ops), routes() as r32:
-        logits_32 = prefill_logits(arch.variant(dtype="float32"), _map(params, lambda t: t.float()), prompt)
+        logits_32 = prefill_logits(arch.variant(dtype="float32"), tree_map(lambda t: t.float(), params), prompt)
     if moe or f32_layers is not None:  # both bf16 runs again, on the f32 run's routing
         with routes(replay=r32.routes if moe else None):
             logits_k = prefill_logits(arch, params, prompt)
@@ -545,6 +560,314 @@ def serve_path(arch, params, prompt, first_tok, kernels, per_prefill, per_step) 
     return launches
 
 
+# The gradient pack on the reference's cases (tests/test_grad_pack.py): the
+# Fig-3 ladder, f32 and bf16 ragged trees, the edge trees; then 10 steps of
+# error feedback.  Kernel bytes and new EF must equal the host reference's
+# (pack_grads_q8) and the plain version's bit for bit.
+GRAD_PACK_LADDER = (512, 4096, 8192, 16384, 32768, 65536)
+# Training: tinyllama-1.1b at full width and depth, bf16, int8 error
+# feedback, on one fixed SyntheticLM batch (the reference test's check that
+# the loss falls, at full width); the gate against the plain path runs on
+# the first TRAIN_GATE_LAYERS layers at full width.
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 8
+TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 1e-3, 2, 20
+TRAIN_GATE_LAYERS = 2
+# The train gate, as shares of the largest |grad| (and of the loss), set
+# from a reading on an H100 (PERF.md): f32 kernels vs f32 plain, where
+# only the flash forward's summation order differs (read 5.9e-7 of max
+# |grad|; held to 1e-5); bf16 kernels vs bf16 plain (read 0.52%; held to
+# about twice that, 1%); and both bf16 runs against the f32 plain run, the
+# kernel run no farther than the plain run by more than F32_MARGIN and
+# under TRAIN_F32_CAP, about twice the plain run's reading of 0.59%.
+TRAIN_F32_TOL = 1e-5
+TRAIN_BF16_TOL = 1e-2
+TRAIN_F32_CAP = 1.2e-2
+GRAD_PACK_BYTES = 13  # read g and ef (4 + 4), write q (1) and the new ef (4)
+GRAD_PACK_OPS = 9  # add, abs, max, div, round, 2 clamps, sub, mul
+
+
+def _np_tree(tree, dtype="float32"):
+    import torch
+
+    return {k: torch.from_numpy(v.astype("float32")).to(getattr(torch, dtype)).cuda() for k, v in tree.items()}
+
+
+def grad_pack_cases():
+    """(name, tree) of the reference test's cases, on the card."""
+    import numpy as np
+    import torch
+
+    for n in GRAD_PACK_LADDER:
+        rng = np.random.default_rng(n)
+        a, b = max(1, n // 2), max(1, n // 3)
+        yield f"fig3_{n}", _np_tree({"w": rng.standard_normal(a), "b": rng.standard_normal(b) * 1e-3,
+                                      "v": rng.standard_normal(max(0, n - a - b))})
+    for dtype in ("float32", "bfloat16"):
+        rng = np.random.default_rng(11)
+        mk = lambda shape: torch.from_numpy(rng.standard_normal(shape).astype("float32")).to(getattr(torch, dtype)).cuda()  # noqa: E731
+        yield f"ragged_{dtype}", {"attn": (mk((33, 17)), mk((129,))), "mlp": [mk((7, 3, 5)), mk((1,))]}
+    yield "scalar", {"s": torch.tensor(0.75, device="cuda")}
+    yield "empty_leaf", {"e": torch.zeros((0,), device="cuda"), "w": torch.ones((3,), device="cuda")}
+    yield "empty_tree", {}
+
+
+def _zeros_ef(tree):
+    import torch
+
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device), tree)
+
+
+def _ef_equal(a, b) -> bool:
+    """Two EF trees equal bit for bit (compared on the first one's device)."""
+    import torch
+
+    from repro_torch.tree import leaves
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and torch.equal(x.view(torch.int32), y.to(x.device).view(torch.int32)) for x, y in zip(la, lb)
+    )
+
+
+def pack_three(tree, ef_k, ef_p, ef_h, name) -> tuple:
+    """One pack through the kernel, the plain version and the host
+    reference, each from its own EF; fails unless the three wires are equal
+    and the new EF trees equal bit for bit.  Returns the three new EF trees
+    and the host reference's seconds."""
+    from repro_torch.kernels.grad_pack import pack_grads_fused, pack_grads_fused_plain
+    from repro_torch.train.grad_sync import pack_grads_q8
+
+    got, new_k = pack_grads_fused(tree, ef_k)
+    plain, new_p = pack_grads_fused_plain(tree, ef_p)
+    t0 = time.monotonic()
+    host, new_h = pack_grads_q8(tree, ef_h)
+    host_s = time.monotonic() - t0
+    ok = got == plain == host and _ef_equal(new_k, new_p) and _ef_equal(new_h, new_k)
+    print(f"grad_pack {name}: wire {len(got)} bytes, kernel == plain == host: {ok} "
+          f"(host reference {host_s} s) {'ok' if ok else 'MISS'}")
+    if not ok:
+        fail(f"grad_pack at {name}: kernel, plain and host wires or EF differ")
+    return new_k, new_p, new_h, host_s
+
+
+def check_grad_pack() -> None:
+    """Phase 2: the grad-pack kernel against its plain version and the host
+    reference on the reference test's cases and over 10 EF steps."""
+    import numpy as np
+
+    from repro_torch.tree import tree_map
+
+    for name, tree in grad_pack_cases():
+        pack_three(tree, _zeros_ef(tree), _zeros_ef(tree), _zeros_ef(tree), name)
+    rng = np.random.default_rng(23)
+    tree0 = _np_tree({"w": rng.standard_normal(640), "b": rng.standard_normal(9) * 1e-4})
+    ef_k = ef_p = ef_h = _zeros_ef(tree0)
+    for step in range(10):
+        g = tree_map(lambda x: x * (1.0 + 0.1 * step) + 0.01 * step, tree0)
+        ef_k, ef_p, ef_h, _ = pack_three(g, ef_k, ef_p, ef_h, f"multistep EF step {step}")
+
+
+def _grad_rel(a, b, ref) -> float:
+    """max |a - b| over all leaves, as a share of max |ref|."""
+    from repro_torch.tree import leaves
+
+    err = max((x.float() - y.float()).abs().max().item() for x, y in zip(leaves(a), leaves(b)))
+    return err / max(r.float().abs().max().item() for r in leaves(ref))
+
+
+def train_batch(arch, seed):
+    import torch
+
+    from repro_torch.data import SyntheticLM
+
+    b = SyntheticLM(arch, TRAIN_B, TRAIN_S, seed=seed).make_batch(0)
+    return {k: torch.from_numpy(v).long().cuda() for k, v in b.items()}
+
+
+def train_gate(ops) -> None:
+    """Phase 5: the train step's loss and gradients through the kernels
+    against the plain path, at full width on the first TRAIN_GATE_LAYERS
+    layers, in f32 and bf16 (see TRAIN_F32_TOL)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import tree_map
+
+    arch = get_config(TRAIN_ARCH).variant(n_layers=TRAIN_GATE_LAYERS)
+    arch32 = arch.variant(dtype="float32")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), arch)
+    p32 = tree_map(lambda t: t.float(), params)
+    batch = train_batch(arch, 0)
+    (lk32, _), gk32 = loss_and_grads(p32, arch32, batch)
+    with plain_kernels(ops):
+        (lp32, _), gp32 = loss_and_grads(p32, arch32, batch)
+        (lp, _), gp = loss_and_grads(params, arch, batch)
+    (lk, _), gk = loss_and_grads(params, arch, batch)
+    torch.cuda.synchronize()
+    f32 = _grad_rel(gk32, gp32, gp32)
+    bf16 = _grad_rel(gk, gp, gp)
+    rel_k, rel_p = _grad_rel(gk, gp32, gp32), _grad_rel(gp, gp32, gp32)
+    lf32, lbf16 = abs(lk32.item() - lp32.item()) / lp32.item(), abs(lk.item() - lp.item()) / lp.item()
+    print(f"train gate ({TRAIN_ARCH}, {TRAIN_GATE_LAYERS} layers, full width, B={TRAIN_B} S={TRAIN_S}): "
+          f"f32 kernels vs plain: loss rel={lf32} grads rel={f32} tol={TRAIN_F32_TOL}; bf16 kernels vs plain: "
+          f"loss rel={lbf16} grads rel={bf16} tol={TRAIN_BF16_TOL}; vs f32 plain: kernels rel={rel_k} plain rel={rel_p} "
+          f"tol=min(plain + {F32_MARGIN}, {TRAIN_F32_CAP})")
+    ok = (f32 <= TRAIN_F32_TOL and lf32 <= TRAIN_F32_TOL and bf16 <= TRAIN_BF16_TOL and lbf16 <= TRAIN_BF16_TOL
+          and rel_k <= rel_p + F32_MARGIN and rel_k <= TRAIN_F32_CAP)
+    if not (ok and all(math.isfinite(x) for x in (f32, bf16, rel_k, rel_p))):
+        fail("the train step through the kernels disagrees with the plain path")
+    del params, p32, gk32, gp32, gp, gk
+    torch.cuda.empty_cache()
+
+
+def train_path(kernels) -> tuple:
+    """Phase 5: tinyllama-1.1b trains TRAIN_STEPS steps at full width with
+    int8_ef on one fixed batch; then two data-parallel "ranks" (batches of
+    seeds 0 and 1) take that state's gradients, pack them with
+    make_packer("device"), exchange the wires over the port's CommChannel,
+    unpack and average, which must equal the direct average bit for bit.
+    Every kernel's count is set to 0 just before and read just after.
+    Returns (launches, the two gradient trees, the per-step flash count)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import CommChannel
+    from repro_torch.kernels.grad_pack import unpack_grads_fused
+    from repro_torch.optim import OptHParams
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.grad_sync import make_packer
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import leaves
+
+    arch = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(microbatches=1, remat="none", grad_sync="int8_ef")
+    t0 = time.monotonic()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0), arch, tcfg)
+    step_fn = make_train_step(arch, OptHParams(lr_peak=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL), tcfg)
+    batches = [train_batch(arch, 0), train_batch(arch, 1)]
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    print(f"{TRAIN_ARCH} train: {n_params} params ({arch.dtype}), state built in {time.monotonic() - t0} s")
+    flash = kernels["flash_attention"]
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, per_step = [], [], []
+    for i in range(TRAIN_STEPS):
+        f0, t0 = flash.launches, time.monotonic()
+        state, met = step_fn(state, batches[0])
+        losses.append(float(met["loss"]))  # waits for the step
+        walls.append(time.monotonic() - t0)
+        per_step.append(flash.launches - f0)
+        print(f"{TRAIN_ARCH} train step {i}: loss={losses[-1]} grad_norm={float(met['grad_norm'])} lr={float(met['lr'])} "
+              f"wall={walls[-1]} s tokens/s={TRAIN_B * TRAIN_S / walls[-1]} flash.launches={per_step[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(walls[1:])[len(walls[1:]) // 2]
+    print(f"{TRAIN_ARCH} train: {TRAIN_STEPS} steps B={TRAIN_B} S={TRAIN_S} int8_ef remat=none: loss {losses[0]} -> "
+          f"{losses[-1]}; median step (after the first) {med} s, {TRAIN_B * TRAIN_S / med} tokens/s; "
+          f"first step {walls[0]} s; peak memory {peak / 2**30} GiB")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"{TRAIN_ARCH}: the loss did not fall over {TRAIN_STEPS} steps on a fixed batch: {losses}")
+    if any(n != arch.n_layers for n in per_step):
+        fail(f"{TRAIN_ARCH}: flash attention launched {per_step} times in the train steps, want {arch.n_layers} a step")
+
+    # the DP exchange: each rank's gradients at this state, packed on the card
+    grads = [loss_and_grads(state["params"], arch, b, tcfg.remat)[1] for b in batches]
+    del state
+    torch.cuda.empty_cache()
+    pack = make_packer("device")
+    zeros = _zeros_ef(grads[0])
+    t0 = time.monotonic()
+    wires = [pack(g, zeros)[0] for g in grads]
+    torch.cuda.synchronize()
+    pack_s = time.monotonic() - t0
+    deq = [unpack_grads_fused(w, g) for w, g in zip(wires, grads)]
+    channel = CommChannel()
+    channel.send_request(wires[0])  # rank 0 -> rank 1
+    channel.send_response(wires[1])  # rank 1 -> rank 0
+    for _ in range(4):
+        channel.progress()
+    arrived = {}
+    for source in ("request", "response"):
+        for _ in range(8):
+            rec = channel.reap(source)
+            if rec is not None and rec.op == "recv":
+                arrived[source] = rec.data
+                break
+    if set(arrived) != {"request", "response"}:
+        fail(f"DP exchange: the wires did not arrive over the CommChannel ({sorted(arrived)})")
+    from_peer0 = unpack_grads_fused(arrived["request"], grads[1])
+    from_peer1 = unpack_grads_fused(arrived["response"], grads[0])
+    same = all(
+        torch.equal((a + p1) / 2, (a + b) / 2) and torch.equal((p0 + b) / 2, (a + b) / 2)
+        for a, b, p0, p1 in zip(leaves(deq[0]), leaves(deq[1]), leaves(from_peer0), leaves(from_peer1))
+    )
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"{TRAIN_ARCH} DP exchange: 2 ranks, wires of {len(wires[0])} bytes packed in {pack_s} s, "
+          f"averaged over the CommChannel == direct average bit for bit: {same}; "
+          + " ".join(f"{name}.launches={n}" for name, n in launches.items()))
+    if not same:
+        fail("DP exchange: the average over the CommChannel differs from the direct average")
+    del deq, from_peer0, from_peer1, zeros, wires
+    torch.cuda.empty_cache()
+    return launches, grads, per_step
+
+
+def grad_pack_full(grads) -> dict:
+    """Phase 5: the grad-pack kernel at the full-width tinyllama gradient
+    tree over 2 EF steps (rank 0's gradients, then rank 1's), bit for bit
+    against the plain version and the host reference; then its times (the
+    kernel alone on the flattened tiles, the plain version on the same
+    inputs, the whole pack_grads_fused with flatten and the copy to the
+    host) and its bound."""
+    import torch
+
+    from repro_torch.kernels import grad_pack as gp
+    from repro_torch.tree import leaves
+
+    ef_k = ef_p = ef_h = _zeros_ef(grads[0])
+    host_s = []
+    for step, g in enumerate(grads):
+        ef_k, ef_p, ef_h, s = pack_three(g, ef_k, ef_p, ef_h, f"{TRAIN_ARCH} full-width gradient tree, EF step {step}")
+        host_s.append(s)
+    del ef_p, ef_h
+    g = grads[1]
+    plan = gp._plan(g, leaves(g))
+    n_leaves = len(plan.specs)
+    gt, et = plan.flatten(leaves(g), leaves(ef_k))
+    body = torch.empty(8 * n_leaves + plan.n_tiles * gp.TILE, dtype=torch.uint8, device="cuda")
+    body[: 4 * n_leaves].copy_(plan.offs_dev)
+    body_p = body.clone()
+    ef_out = gp.quantize_pack(gt, et, plan.seg_dev, n_leaves, body)
+    ef_plain = gp.quantize_pack_plain(gt, et, plan.seg_dev, n_leaves, body_p)
+    err = (ef_out - ef_plain).abs().max().item()
+    if not (torch.equal(body, body_p) and err == 0.0):
+        fail(f"grad_pack at the full-width tree: kernel and plain bodies or EF differ (max |d ef| {err})")
+    del ef_out, ef_plain, body_p
+    t_kernel = cuda_ms(lambda: gp.quantize_pack(gt, et, plan.seg_dev, n_leaves, body), iters=20, warmup=3)
+    t_plain = cuda_ms(lambda: gp.quantize_pack_plain(gt, et, plan.seg_dev, n_leaves, body), iters=5, warmup=1)
+    t_kernel2 = cuda_ms(lambda: gp.quantize_pack(gt, et, plan.seg_dev, n_leaves, body), iters=20, warmup=3)
+    del gt, et
+    torch.cuda.empty_cache()
+    t_whole = cuda_ms(lambda: gp.pack_grads_fused(g, ef_k), iters=3, warmup=1)
+    n = plan.n_tiles * gp.TILE
+    t_bytes, t_ops = GRAD_PACK_BYTES * n / PEAK_BYTES, GRAD_PACK_OPS * n / PEAK_FLOPS["float32"]
+    bound, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    print(f"grad_pack {TRAIN_ARCH} gradient tree ({n_leaves} leaves, {sum(s.nelems for s in plan.specs)} elements, "
+          f"{n} padded, largest leaf {max(s.nelems for s in plan.specs)}): kernel={t_kernel} ms (again {t_kernel2} ms) "
+          f"plain={t_plain} ms whole pack_grads_fused={t_whole} ms bound={bound} ms ({bound_by}); "
+          f"host reference {host_s} s a step")
+    return {"ms": t_kernel, "plain_ms": t_plain, "whole_ms": t_whole, "bound_ms": bound, "bound_by": bound_by,
+            "max_abs_err": err}
+
+
 # The served models, in order; the launches each kernel must make per
 # prefill and per decode step on its path: one flash attention per
 # attention layer in a prefill (zamba2's shared block runs at layers 0, 6,
@@ -554,7 +877,7 @@ def serve_path(arch, params, prompt, first_tok, kernels, per_prefill, per_step) 
 # own as measured on an H100 (1.46%, 1.83%, 4.23% and, for deepseek on 4
 # layers on the f32 run's routing, 1.39% of max |logit|); and the layers of
 # the f32 comparison (all, or deepseek's first DEEPSEEK_F32_LAYERS).
-NO_LAUNCH = {"flash_attention": 0, "ssd_chunk_kernel": 0, "grouped_matmul": 0}
+NO_LAUNCH = {"flash_attention": 0, "ssd_chunk_kernel": 0, "grouped_matmul": 0, "quantize_pack": 0}
 PATHS = [
     ("tinyllama-1.1b", dict(NO_LAUNCH, flash_attention=22), NO_LAUNCH, 3e-2, None),
     ("mamba2-130m", dict(NO_LAUNCH, ssd_chunk_kernel=24), NO_LAUNCH, 4e-2, None),
@@ -580,15 +903,17 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+    from repro_torch.kernels.grad_pack import quantize_pack
     from repro_torch.kernels.moe_gmm import grouped_matmul, grouped_matmul_plain
     from repro_torch.kernels.ssd_scan import ssd_chunk_kernel, ssd_chunk_plain
     from repro_torch.models import init_params
+    from repro_torch.tree import leaves
 
     # full-f32 products for the f32 comparisons, stated rather than assumed
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = {"flash_attention": flash_attention, "ssd_chunk_kernel": ssd_chunk_kernel,
-               "grouped_matmul": grouped_matmul}
+               "grouped_matmul": grouped_matmul, "quantize_pack": quantize_pack}
 
     # 1. the card and the build ----------------------------------------------
     smi = subprocess.run(
@@ -597,7 +922,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     t0 = time.monotonic()
-    build.build(["flash_attention", "ssd_scan", "moe_gmm"])
+    build.build(["flash_attention", "ssd_scan", "moe_gmm", "grad_pack"])
     print(f"kernel build: {time.monotonic() - t0} s")
 
     # 2. every kernel against its plain version ------------------------------
@@ -608,6 +933,7 @@ def main() -> int:
     gen_moe = torch.Generator(device="cuda").manual_seed(13)  # leaves gen's draws for the earlier paths as they were
     check_attention(flash_attention, attention_plain, gen_moe, DEEPSEEK_CASES)
     gmm_errs = check_gmm(grouped_matmul, grouped_matmul_plain, gen_moe)
+    check_grad_pack()
 
     # 3./4. each model: full-width prefill check, then serving ----------------
     by_path = {}
@@ -616,7 +942,7 @@ def main() -> int:
         t0 = time.monotonic()
         params = init_params(torch.Generator(device="cuda").manual_seed(0), arch)
         torch.cuda.synchronize()
-        n_params = sum(t.numel() for t in _leaves(params))
+        n_params = sum(t.numel() for t in leaves(params))
         print(f"{name}: {n_params} params ({arch.dtype}) built in {time.monotonic() - t0} s")
         prompt = torch.randint(0, arch.vocab_size, (1, 777), generator=gen, device="cuda")
         first_tok = prefill_check(arch, params, prompt, ops, f32_cap, f32_layers)
@@ -624,7 +950,19 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
 
-    # 5. times at the serving paths' shapes -----------------------------------
+    # 5. training: the gate, the train path with the DP exchange, the pack ---
+    train_gate(ops)
+    train_launches, grads, _ = train_path(kernels)
+    want = dict(NO_LAUNCH, flash_attention=(TRAIN_STEPS + 2) * get_config(TRAIN_ARCH).n_layers, quantize_pack=2)
+    if train_launches != want:
+        fail(f"{TRAIN_ARCH} train path: launches {train_launches}, want {want} "
+             f"({TRAIN_STEPS} steps and 2 ranks' gradients of one flash launch a layer; one pack a rank)")
+    by_path[f"{TRAIN_ARCH} train"] = train_launches
+    gp_ms = grad_pack_full(grads)
+    del grads
+    torch.cuda.empty_cache()
+
+    # 6. times at the serving paths' shapes -----------------------------------
     q, k, v = attention_inputs(SLICE_CASE, gen)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # SDPA's (B,H,S,D)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -669,7 +1007,7 @@ def main() -> int:
         print(f"grouped_matmul {case}: kernel={t_kernel} ms (again {t_kernel2} ms) plain={t_plain} ms "
               f"torch.bmm={t_lib} ms bound={gbound} ms ({gbound_by})")
 
-    # 6. the record ---------------------------------------------------------------
+    # 7. the record ---------------------------------------------------------------
     g_kernel, g_plain, g_lib, gbound, gbound_by = gmm_ms[GMM_PREFILL_UP]
     t_kernel, t_plain, t_lib, sbound, sbound_by = ssd_ms[SSD_MAMBA2]
     print(json.dumps({"kernels": [{
@@ -714,25 +1052,26 @@ def main() -> int:
         "bound_by": gbound_by,
         "library_ms": g_lib,
         "check": "pass",
+    }, {
+        "name": "grad_pack",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/grad_pack.cu",
+        "replaces": "src/repro/kernels/grad_pack.py:84",
+        "launches": sum(p["quantize_pack"] for p in by_path.values()),
+        "launches_by_path": {n: p["quantize_pack"] for n, p in by_path.items()},
+        "max_abs_err": gp_ms["max_abs_err"],
+        "ms": gp_ms["ms"],
+        "plain_ms": gp_ms["plain_ms"],
+        "bound_ms": gp_ms["bound_ms"],
+        "bound_by": gp_ms["bound_by"],
+        "library_ms": None,
+        "whole_pack_ms": gp_ms["whole_ms"],
+        "check": "pass",
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
     return 0
-
-
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Carry JAX-made parameters and caches into the port.
+"""Carry JAX-made parameters, caches and train states into the port.
 
 The JAX package's pytrees arrive as nested dicts of numpy arrays (for
 example ``jax.tree.map(np.asarray, params)``); the port's trees have the
@@ -15,7 +15,7 @@ import torch
 
 from .device import resolve_device
 
-__all__ = ["params_from_jax", "cache_from_jax"]
+__all__ = ["params_from_jax", "cache_from_jax", "train_state_from_jax"]
 
 
 def _tensor(a: Any, device: torch.device) -> torch.Tensor:
@@ -40,3 +40,13 @@ def params_from_jax(tree: Any, device: Union[str, torch.device, None] = "cuda") 
 def cache_from_jax(tree: Any, device: Union[str, torch.device, None] = "cuda") -> Any:
     """A JAX decode cache (numpy leaves) as the port's cache."""
     return _tree(tree, resolve_device(device))
+
+
+def train_state_from_jax(state: Any, device: Union[str, torch.device, None] = "cuda") -> Any:
+    """A JAX train state (numpy leaves: ``params``, ``opt`` with ``mu``,
+    ``nu`` and ``count``, ``step``, and ``ef`` under int8_ef) as the port's
+    train state."""
+    missing = {"params", "opt", "step"} - set(state)
+    if missing or {"mu", "nu", "count"} - set(state["opt"]):
+        raise ValueError(f"not a train state: keys {sorted(state)}")
+    return _tree(state, resolve_device(device))

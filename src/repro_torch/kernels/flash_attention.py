@@ -16,6 +16,7 @@ import math
 import torch
 
 from . import build
+from .guard import refuse_autograd
 
 __all__ = ["NEG_INF", "attention_plain", "flash_attention", "HEAD_DIMS", "DTYPES"]
 
@@ -107,6 +108,7 @@ def flash_attention(
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window, chunk=chunk)
     _check(q, k, v, window, chunk)
+    refuse_autograd("flash_attention", q, k, v)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:

@@ -18,6 +18,7 @@ import functools
 import torch
 
 from . import build
+from .guard import refuse_autograd
 
 __all__ = ["grouped_matmul", "grouped_matmul_plain", "DTYPES"]
 
@@ -59,6 +60,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w)
     _check(x, w)
+    refuse_autograd("grouped_matmul", x, w)
     e, c, d = x.shape
     f = w.shape[2]
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)

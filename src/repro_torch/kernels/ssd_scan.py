@@ -19,6 +19,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import build
+from .guard import refuse_autograd
 
 __all__ = ["ssd_chunk_plain", "ssd_chunk_ref", "ssd_chunk_kernel", "smem_bytes", "DTYPES", "MAX_SMEM_BYTES"]
 
@@ -158,6 +159,7 @@ def ssd_chunk_kernel(
         return ssd_chunk_plain(a_dt, x, b, c)
     _check_shapes(a_dt, x, b, c)
     smem = _check_kernel(a_dt, x, b, c)
+    refuse_autograd("ssd_chunk_kernel", a_dt, x, b, c)
     bsz, h, nc, q = a_dt.shape
     p, g, n = x.shape[-1], b.shape[1], b.shape[-1]
     y = torch.empty((bsz, h, nc, q, p), dtype=x.dtype, device=x.device)

@@ -1,3 +1,3 @@
-from .model import decode_step, init_cache, init_params, model_dtype, prefill
+from .model import decode_step, forward_train, init_cache, init_params, loss_fn, model_dtype, prefill
 
-__all__ = ["init_params", "init_cache", "prefill", "decode_step", "model_dtype"]
+__all__ = ["init_params", "forward_train", "loss_fn", "init_cache", "prefill", "decode_step", "model_dtype"]

@@ -1,8 +1,15 @@
 """GQA attention (full / sliding-window / chunked-local / bidirectional).
 
 Port of the GQA half of ``repro/models/attention.py``; MLA waits for a
-later slice (ROADMAP.md, queue A).  Two entry points:
+later slice (ROADMAP.md, queue A).  Three entry points:
 
+* :func:`attention_train` — full-sequence attention of the train forward.
+  On a CUDA tensor it runs the Hopper flash-attention kernel inside an
+  ``autograd.Function`` (:class:`FlashAttentionFn`): the forward is the
+  kernel, the backward the gradient of the reference's q-chunked lowering,
+  recomputed from the saved q, k and v with PyTorch ops (the reference has
+  no backward kernel, so none is ported).  On the CPU autograd runs
+  through that lowering directly.
 * :func:`attention_prefill` — prompt attention + ring-cache population.
   On a CUDA tensor every prefill runs the Hopper flash-attention kernel
   (:mod:`repro_torch.kernels`), whatever the prompt length: the kernel
@@ -30,6 +37,8 @@ from .layers import Params, apply_rope, dense_init
 __all__ = [
     "NEG_INF",
     "attn_init",
+    "FlashAttentionFn",
+    "attention_train",
     "init_kv_cache",
     "attention_prefill",
     "attention_decode",
@@ -84,6 +93,11 @@ def _mask_block(qpos: torch.Tensor, kpos: torch.Tensor, kind: str, window: int) 
 
 
 # ------------------------------------------------- core (q-chunked, online)
+def _kernel_kw(kind: str, window: int) -> dict:
+    """The kernel's mask arguments for an attention ``kind``."""
+    return dict(causal=kind != "bidir", window=window if kind == "swa" else 0, chunk=window if kind == "chunked" else 0)
+
+
 def _attention_core(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -94,22 +108,30 @@ def _attention_core(
     window: int,
     q_chunk: int = 1024,
 ) -> torch.Tensor:
-    """Scaled-dot-product GQA over full K/V.
-
-    q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd); qpos: (Sq,), kpos: (Skv,), both
-    ``arange`` in prefill.  CUDA tensors go to the flash-attention kernel;
-    CPU tensors are scanned over query chunks, with K/V sliced per chunk
-    for swa/chunked so those flavours cost O(S·window)."""
+    """Scaled-dot-product GQA over full K/V (prefill: qpos and kpos both
+    ``arange``).  CUDA tensors go to the flash-attention kernel, CPU
+    tensors to :func:`_attention_core_plain`."""
     if kind not in KINDS:
         raise ValueError(f"unknown attention kind {kind!r}")
     if q.is_cuda:
-        return kops.attention(
-            q, k, v,
-            causal=kind != "bidir",
-            window=window if kind == "swa" else 0,
-            chunk=window if kind == "chunked" else 0,
-        )
+        return kops.attention(q, k, v, **_kernel_kw(kind, window))
+    return _attention_core_plain(q, k, v, qpos, kpos, kind, window, q_chunk)
 
+
+def _attention_core_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    qpos: torch.Tensor,
+    kpos: torch.Tensor,
+    kind: str,
+    window: int,
+    q_chunk: int = 1024,
+) -> torch.Tensor:
+    """The reference's lowering (``_attention_core``'s scan), on any
+    device: q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd); scanned over query chunks,
+    with K/V sliced per chunk for swa/chunked so those flavours cost
+    O(S·window); scores in f32, probabilities cast to v's dtype."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -149,6 +171,52 @@ def _attention_core(
         outs.append(torch.einsum("bkgqs,bskh->bkgqh", probs, vc))
     # (n_chunks, B, KV, G, cq, hd) → (B, Sq, H, hd)
     return torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, hd)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Train-path attention through the flash-attention kernel.
+
+    Forward: the kernel (``kops.attention``), with grad mode off as every
+    ``Function.forward`` runs.  Backward: not a kernel — the gradient of
+    the reference's lowering (:func:`_attention_core_plain`), recomputed
+    from the saved q, k and v with PyTorch ops.  The reference has no
+    backward kernel (no ``custom_vjp`` in the JAX package), so the port has
+    none either; a backward kernel is queued work."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kind: str, window: int) -> torch.Tensor:
+        ctx.save_for_backward(q, k, v)
+        ctx.kind, ctx.window = kind, window
+        return kops.attention(q, k, v, **_kernel_kw(kind, window))
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+            qpos = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
+            kpos = torch.arange(k.shape[1], dtype=torch.int32, device=k.device)
+            out = _attention_core_plain(qd, kd, vd, qpos, kpos, ctx.kind, ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), dout)
+        return dq, dk, dv, None, None
+
+
+def attention_train(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, window: int = 0) -> torch.Tensor:
+    """Full-sequence self-attention of the train forward (RoPE on; the
+    reference's ``kv_x`` cross-attention and ``rope=False`` encoder forms
+    wait for the encoder-decoder slice)."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown attention kind {kind!r}")
+    sq = x.shape[1]
+    q, k, v = _project_qkv(p, x)
+    pos = torch.arange(sq, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    if q.is_cuda:
+        out = FlashAttentionFn.apply(q, k, v, kind, window)
+    else:
+        out = _attention_core_plain(q, k, v, pos, pos, kind, window)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 # ------------------------------------------------------------------ KV cache

@@ -22,6 +22,7 @@ __all__ = [
     "ffn_init",
     "ffn_apply",
     "embed_init",
+    "cross_entropy_loss",
 ]
 
 Params = Dict[str, torch.Tensor]
@@ -86,3 +87,16 @@ def ffn_apply(p: Params, x: torch.Tensor, gated: bool = True) -> torch.Tensor:
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype: torch.dtype) -> torch.Tensor:
     return dense_init(gen, (vocab, d_model), dtype, scale=1.0)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross entropy in f32; ``mask`` (same shape as labels)
+    excludes padding/vision-prefix positions."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

@@ -4,6 +4,8 @@ Port of the dense, MoE (deepseek-moe), SSM (mamba2) and hybrid (zamba2)
 branches of ``repro/models/model.py``:
 
 * ``init_params(gen, cfg)``            — stacked per-layer params (leading ``L``)
+* ``forward_train(params, cfg, batch)`` → (logits, aux_loss), dense only
+* ``loss_fn(params, cfg, batch)``       → (loss, metrics), dense only
 * ``init_cache(cfg, batch, context)``   — stacked decode cache
 * ``prefill(params, cfg, batch, cache)`` → (last-token logits, cache)
 * ``decode_step(params, cfg, tokens, positions, cache)`` → (logits, cache)
@@ -19,23 +21,32 @@ A MoE layer's FFN is :func:`repro_torch.models.moe.moe_apply` (its aux
 loss is dropped, as the reference's serving path drops it).  Other
 families (MLA, encoder-decoder, VLM) raise ``NotImplementedError`` until
 their slice is ported (ROADMAP.md, queue A); so do chunked-local
-attention layers (``llama4-scout``).
+attention layers (``llama4-scout``).  The train forward is ported for the
+dense decoder only: on a card its attention runs the flash-attention
+kernel through :class:`~repro_torch.models.attention.FlashAttentionFn`;
+the SSM, hybrid and MoE trains raise until autograd runs through their
+kernels too.  ``remat`` maps to ``torch.utils.checkpoint`` per layer:
+``"full"`` recomputes everything, ``"dots"`` / ``"dots_no_batch"`` save
+the matmul outputs (selective checkpointing, as the reference's
+``checkpoint_dots`` policies).
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..tree import tree_map
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import Params, dense_init, embed_init, ffn_apply, ffn_init, rms_norm
+from .layers import Params, cross_entropy_loss, dense_init, embed_init, ffn_apply, ffn_init, rms_norm
 
-__all__ = ["init_params", "init_cache", "prefill", "decode_step", "model_dtype"]
+__all__ = ["init_params", "forward_train", "loss_fn", "init_cache", "prefill", "decode_step", "model_dtype"]
 
 
 def model_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -61,10 +72,14 @@ def _index(tree: Any, i: int) -> Any:
     return tree[i]
 
 
-def _map(tree: Any, fn) -> Any:
+def _unbind(tree: Any) -> Any:
+    """Each stacked leaf as its ``L`` per-layer views.  Under autograd the
+    views' gradients come back as one ``stack``; indexing the stacked leaf
+    per layer would give each layer's gradient a zero-filled copy of the
+    whole stack, summed L times."""
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _unbind(v) for k, v in tree.items()}
+    return tree.unbind(0)
 
 
 def _put(stacked: Any, tree: Any, i: int) -> None:
@@ -81,7 +96,7 @@ def _init_stacked(make, n: int) -> Any:
     stack plus one tree (a list of trees and their stack would hold two
     copies of the weights)."""
     first = make()
-    stacked = _map(first, lambda t: t.new_empty((n,) + t.shape))
+    stacked = tree_map(lambda t: t.new_empty((n,) + t.shape), first)
     _put(stacked, first, 0)
     del first
     for i in range(1, n):
@@ -135,6 +150,99 @@ def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]  # (V, d)
     return torch.einsum("bsd,vd->bsv", x, head)
+
+
+# ------------------------------------------------------------- train forward
+def _check_trainable(cfg: ArchConfig) -> None:
+    _check_ported(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the train forward of the {cfg.family!r} family is not ported yet; it needs "
+            "autograd through the SSD and grouped-matmul kernels (ROADMAP.md, queue A, item 3: "
+            "the SSM, hybrid and MoE trains)"
+        )
+
+
+def _mixer_train(lp: Params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Sequence mixer on a normalized input, train path (dense: GQA)."""
+    return attn.attention_train(lp["attn"], h, cfg, cfg.attn_kind, cfg.window)
+
+
+def _channel_train(lp: Params, h: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Channel mixer, train path: the dense FFN and a zero aux loss."""
+    return ffn_apply(lp["ffn"], h, gated=cfg.gated_ffn), torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+REMATS = ("none", "full", "dots", "dots_no_batch")
+
+
+def _dots_context(no_batch: bool) -> Callable:
+    """Selective checkpointing that saves matmul outputs: ``mm`` and
+    ``addmm`` always, ``bmm`` too unless ``no_batch`` (the reference's
+    ``checkpoint_dots`` / ``checkpoint_dots_with_no_batch_dims``)."""
+    try:
+        from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+    except ImportError as exc:  # torch before selective checkpointing
+        raise NotImplementedError(f"remat 'dots' needs torch.utils.checkpoint selective checkpointing: {exc}") from None
+    aten = torch.ops.aten
+    saved = {aten.mm.default, aten.addmm.default} | (set() if no_batch else {aten.bmm.default})
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def _decoder_train(params: Params, cfg: ArchConfig, x: torch.Tensor, remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the decoder stack; returns (hidden, aux_loss_sum)."""
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+
+    def body(h: torch.Tensor, lp: Params) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = h + _mixer_train(lp, rms_norm(h, lp["ln1"], cfg.norm_eps), cfg)
+        f, a_loss = _channel_train(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)
+        return h + f, a_loss
+
+    ckpt_kw = None
+    if remat != "none":
+        from torch.utils.checkpoint import checkpoint
+
+        ckpt_kw = {"use_reentrant": False}
+        if remat != "full":
+            ckpt_kw["context_fn"] = _dots_context(remat == "dots_no_batch")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = _unbind(params["layers"])
+    for i in range(cfg.n_layers):
+        lp = _index(layers, i)
+        if ckpt_kw is None:
+            x, a_loss = body(x, lp)
+        else:
+            x, a_loss = checkpoint(body, x, lp, **ckpt_kw)
+        aux = aux + a_loss
+    return x, aux
+
+
+def forward_train(
+    params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], remat: str = "none"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch: tokens (B, S).  Returns (logits (B, S, V), aux_loss)."""
+    _check_trainable(cfg)
+    x = _embed_tokens(params, batch["tokens"])
+    x, aux = _decoder_train(params, cfg, x, remat=remat)
+    return _logits(params, cfg, x), aux
+
+
+def loss_fn(
+    params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], remat: str = "none"
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross entropy over positions whose label is >= 0,
+    plus the router aux loss; returns (total, {"loss", "xent", "aux"})."""
+    logits, aux = forward_train(params, cfg, batch, remat=remat)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    xent = cross_entropy_loss(logits, torch.clamp_min(labels, 0), mask)
+    total = xent + cfg.router_aux_coef * aux
+    return total, {"loss": total, "xent": xent, "aux": aux}
 
 
 # ------------------------------------------------------------------- caches

@@ -1,0 +1,116 @@
+"""Trainer: the host-side orchestration loop.
+
+Port of ``repro/train/trainer.py``:
+
+* the **AMT executor** (paper runtime) builds the data batches ahead of
+  the step; the loop pumps ``executor.progress()`` once per step — the
+  parcelport ``background_work`` contract (paper Listing 2);
+* **step-time watchdog**: flags straggler steps and records them.
+
+The train step updates the state in place (see
+:mod:`repro_torch.train.step`), where the reference's ``jit`` donates it,
+so a full-width run holds one copy of the optimizer state.
+Checkpoint/restart (``ckpt_dir``) is not ported yet and raises.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig
+from ..core.executor import AMTExecutor
+from ..data import PrefetchingLoader, SyntheticLM
+from ..device import resolve_device
+from ..optim import OptHParams
+from .step import TrainConfig, TrainState, init_train_state, make_train_step
+
+__all__ = ["Trainer", "TrainerConfig"]
+
+
+@dataclass
+class TrainerConfig:
+    batch: int = 8
+    seq: int = 128
+    steps: int = 100
+    ckpt_every: int = 50
+    ckpt_dir: Optional[str] = None
+    log_every: int = 10
+    straggler_factor: float = 3.0  # step slower than 3× median → flagged
+    seed: int = 0
+
+
+class Trainer:
+    def __init__(
+        self,
+        arch: ArchConfig,
+        hp: OptHParams,
+        tcfg: TrainConfig = TrainConfig(microbatches=1, remat="none"),
+        run: TrainerConfig = TrainerConfig(),
+        executor: Optional[AMTExecutor] = None,
+        device: Union[str, torch.device, None] = "cuda",
+    ):
+        if run.ckpt_dir:
+            raise NotImplementedError("checkpoint/restart is not ported yet (ROADMAP.md, queue A, item 5)")
+        self.arch = arch
+        self.hp = hp
+        self.tcfg = tcfg
+        self.run_cfg = run
+        self.device = resolve_device(device)
+        self.executor = executor or AMTExecutor(n_workers=2)
+        self._own_executor = executor is None
+        self.step_fn = make_train_step(arch, hp, tcfg)
+        self.state: Optional[TrainState] = None
+        self.metrics_log: List[Dict[str, float]] = []
+        self.straggler_steps: List[int] = []
+
+    def _to_device(self, batch_np: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch_np.items()}
+        for k in ("tokens", "labels"):
+            batch[k] = batch[k].long()
+        return batch
+
+    # ------------------------------------------------------------------ run
+    def train(self) -> Dict[str, Any]:
+        try:
+            return self._train()
+        finally:
+            if self._own_executor:
+                self.executor.shutdown()
+
+    def _train(self) -> Dict[str, Any]:
+        rc = self.run_cfg
+        gen = torch.Generator(device=self.device).manual_seed(rc.seed)
+        state = self.state = init_train_state(gen, self.arch, self.tcfg)
+        source = SyntheticLM(self.arch, rc.batch, rc.seq, seed=rc.seed)
+        loader = PrefetchingLoader(source, self.executor, depth=4)
+        times: List[float] = []
+        for step in range(rc.steps):
+            batch = self._to_device(loader.next())
+            t0 = time.monotonic()
+            state, metrics = self.step_fn(state, batch)
+            rec_metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
+            dt = time.monotonic() - t0
+            times.append(dt)
+            med = float(np.median(times[-32:]))
+            if len(times) > 8 and dt > rc.straggler_factor * med:
+                self.straggler_steps.append(step)
+            rec = {"step": step, "time_s": dt, **rec_metrics}
+            self.metrics_log.append(rec)
+            if step % rc.log_every == 0:
+                print(
+                    f"step {step:5d} loss={rec.get('loss', float('nan')):.4f} "
+                    f"lr={rec.get('lr', 0):.2e} {dt*1e3:.0f}ms",
+                    flush=True,
+                )
+            # paper Listing 2 contract: pump host-side background work
+            self.executor.progress()
+        return {
+            "final_loss": self.metrics_log[-1].get("loss") if self.metrics_log else None,
+            "steps": len(self.metrics_log),
+            "stragglers": self.straggler_steps,
+            "median_step_s": float(np.median(times)) if times else None,
+        }

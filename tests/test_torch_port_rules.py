@@ -1,14 +1,19 @@
 """Rules the PyTorch/CUDA port keeps.
 
-* Nothing under ``src/repro_torch/``, and not ``chip_smoke.py`` or
-  ``tools/torch_serve_profile.py``, imports ``jax`` or the JAX package
-  ``repro`` (``repro_torch`` is the port).
+* Nothing under ``src/repro_torch/``, and not ``chip_smoke.py``,
+  ``tools/torch_serve_profile.py`` or ``tools/torch_train_profile.py``,
+  imports ``jax``, ``ml_dtypes`` or the JAX package ``repro``
+  (``repro_torch`` is the port).
 * Entry points run on ``cuda`` unless the caller asks for the CPU; without
   a card they raise instead of carrying on on the CPU.
 * The CUDA kernels (flash attention, the SSD chunk scan, the grouped
   matmul) agree with their plain versions (``gpu``-marked: need
   a card, decided inside the test).  This file imports no JAX, so those
-  tests run on a machine that has none."""
+  tests run on a machine that has none.
+* A kernel wrapper refuses inputs that require grad under grad mode (its
+  output would be silently detached); the train path goes through the
+  flash-attention kernel by ``FlashAttentionFn``, whose gradients equal
+  the plain path's (``gpu``-marked)."""
 import ast
 from pathlib import Path
 
@@ -17,15 +22,19 @@ import pytest
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.bridge import params_from_jax
+from repro_torch.bridge import params_from_jax, train_state_from_jax
 from repro_torch.configs import SMOKES
 from repro_torch.launch.serve import main as serve_main
+from repro_torch.launch.train import main as train_main
 from repro_torch.models import init_cache
+from repro_torch.optim import OptHParams
+from repro_torch.train.trainer import Trainer
 
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tools" / "torch_serve_profile.py"]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "tools" / "torch_serve_profile.py", REPO / "tools" / "torch_train_profile.py"]
 
 
 def _imported_roots(path: Path):
@@ -41,14 +50,21 @@ def test_port_files_exist():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     for rel in ("src/repro_torch/models/model.py", "src/repro_torch/models/ssm.py", "src/repro_torch/models/moe.py",
                 "src/repro_torch/kernels/flash_attention.py", "src/repro_torch/kernels/ssd_scan.py",
-                "src/repro_torch/kernels/moe_gmm.py",
-                "src/repro_torch/serve/server.py", "src/repro_torch/core/comm/collective.py", "chip_smoke.py"):
+                "src/repro_torch/kernels/moe_gmm.py", "src/repro_torch/kernels/grad_pack.py",
+                "src/repro_torch/serve/server.py", "src/repro_torch/core/comm/collective.py",
+                "src/repro_torch/core/comm/wire.py", "src/repro_torch/core/comm/membership.py",
+                "src/repro_torch/core/executor.py", "src/repro_torch/core/worker.py",
+                "src/repro_torch/data/pipeline.py", "src/repro_torch/optim/adamw.py",
+                "src/repro_torch/train/grad_sync.py", "src/repro_torch/train/step.py",
+                "src/repro_torch/train/trainer.py", "src/repro_torch/launch/train.py", "chip_smoke.py"):
         assert rel in names
+    for cu in ("flash_attention", "ssd_scan", "moe_gmm", "grad_pack"):
+        assert (REPO / "src" / "repro_torch" / "kernels" / "csrc" / f"{cu}.cu").is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(REPO).as_posix())
 def test_port_imports_neither_jax_nor_the_jax_package(path):
-    bad = {root for root in _imported_roots(path) if root in ("jax", "jaxlib", "repro")}
+    bad = {root for root in _imported_roots(path) if root in ("jax", "jaxlib", "ml_dtypes", "repro")}
     assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
@@ -77,6 +93,12 @@ def test_entry_points_raise_without_a_card(no_card):
         init_cache(SMOKES["tinyllama-1.1b"], 1, 8)
     with pytest.raises(RuntimeError):
         params_from_jax({"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(["--arch", "tinyllama-1.1b", "--steps", "1"])
+    with pytest.raises(RuntimeError):
+        Trainer(SMOKES["tinyllama-1.1b"], OptHParams())
+    with pytest.raises(RuntimeError):
+        train_state_from_jax({"params": {}, "opt": {"mu": {}, "nu": {}, "count": 0}, "step": 0})
 
 
 def test_entry_points_run_on_the_cpu_when_asked(no_card):
@@ -228,3 +250,89 @@ def test_cuda_grouped_matmul_rows_do_not_depend_on_the_batch():
     both = grouped_matmul(q.view(64, 32, 256), w).view(64, 8, 4, 96)
     for b in (0, 5):
         assert torch.equal(grouped_matmul(q[:, b], w), both[:, b])
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_refuse_to_detach_under_autograd():
+    """Each wrapper hands raw pointers to its kernel: under grad mode, an
+    input that requires grad is refused (RuntimeError) rather than given a
+    result with no ``grad_fn``; under ``no_grad`` the same call runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import grouped_matmul
+    from repro_torch.kernels.ssd_scan import ssd_chunk_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    calls = [
+        (flash_attention, (rnd(1, 64, 4, 64), rnd(1, 64, 2, 64), rnd(1, 64, 2, 64))),
+        (ssd_chunk_kernel, (-rnd(1, 2, 2, 16).abs() * 0.1, rnd(1, 2, 2, 16, 16), rnd(1, 1, 2, 16, 16), rnd(1, 1, 2, 16, 16))),
+        (grouped_matmul, (rnd(2, 8, 16), rnd(2, 16, 8))),
+    ]
+    for fn, args in calls:
+        for i in range(len(args)):
+            grad_args = [a.clone().requires_grad_(j == i) for j, a in enumerate(args)]
+            before = fn.launches
+            with pytest.raises(RuntimeError, match="detached"):
+                fn(*grad_args)
+            assert fn.launches == before
+            with torch.no_grad():
+                fn(*grad_args)
+            assert fn.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_function_grads_match_the_plain_path(dtype, monkeypatch):
+    """Gradients through ``FlashAttentionFn`` (forward: the kernel; backward:
+    the reference lowering's gradient from the saved q, k, v) against the
+    plain path.  At the op, dq/dk/dv equal autograd through the lowering
+    bit for bit (the backward recomputes exactly that), and the outputs
+    agree within the kernel's own tolerance (5e-5 f32, 4e-2 bf16).  Through
+    the smoke model's loss, every gradient leaf is within 1e-4 (f32) or
+    5e-2 (bf16: the kernel rounds p to bf16 before PV, and the difference
+    reaches the weights' gradients) of the largest |grad| of the run with
+    the plain attention swapped in; the kernel launches once per layer per
+    forward, and again in each recompute under remat."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+    from repro_torch.models.attention import FlashAttentionFn, _attention_core_plain
+    from repro_torch.train import init_train_state
+    from repro_torch.train.step import loss_and_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((2, 96, h, 64), generator=gen, device="cuda").to(dtype) for h in (8, 2, 2))
+    dout = torch.randn((2, 96, 8, 64), generator=gen, device="cuda").to(dtype)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    out = FlashAttentionFn.apply(qa, ka, va, "full", 0)
+    out.backward(dout)
+    qb, kb, vb = (t.clone().requires_grad_() for t in (q, k, v))
+    pos = torch.arange(96, dtype=torch.int32, device="cuda")
+    ref = _attention_core_plain(qb, kb, vb, pos, pos, "full", 0)
+    ref.backward(dout)
+    assert (out.float() - ref.float()).abs().max().item() < (5e-5 if dtype == torch.float32 else 4e-2)
+    for a, b in ((qa, qb), (ka, kb), (va, vb)):
+        assert torch.equal(a.grad, b.grad)
+
+    cfg = SMOKES["tinyllama-1.1b"].variant(dtype="float32" if dtype == torch.float32 else "bfloat16")
+    params = init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg)["params"]
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for remat, per_layer in (("none", 1), ("full", 2), ("dots", 2)):
+        before = flash_attention.launches
+        (lk, _), gk = loss_and_grads(params, cfg, batch, remat)
+        assert flash_attention.launches - before == per_layer * cfg.n_layers, remat
+    with monkeypatch.context() as m:
+        m.setattr(ops, "attention", lambda q, k, v, **kw: attention_plain(q, k, v, **kw))
+        (lp, _), gp = loss_and_grads(params, cfg, batch, "none")
+    from repro_torch.tree import leaves
+
+    gmax = max(g.float().abs().max().item() for g in leaves(gp))
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    assert abs(lk.item() - lp.item()) <= tol * max(1.0, abs(lp.item()))
+    for a, b in zip(leaves(gk), leaves(gp)):
+        assert (a.float() - b.float()).abs().max().item() <= tol * gmax

@@ -18,7 +18,7 @@ decode over the 8 slots.  For each window it prints the host wall time,
 the summed device time of the kernels (one stream, so they do not
 overlap), the number of kernels, the device busy share (device time over
 wall time), the share of the port's own kernels (flash attention, the SSD
-chunk scan, the grouped matmul) and the kernels that took the most device time.  The profiler
+chunk scan, the grouped matmul, the gradient pack) and the kernels that took the most device time.  The profiler
 adds host time to every operator, so the walls here are upper bounds;
 ``chip_smoke.py`` reports the serving walls without it.  Chrome traces go
 to ``--out``.  Without a card it exits non-zero.
@@ -34,9 +34,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-# device-side names of the port's hand-written kernels (csrc/*.cu)
-PORT_KERNELS = {"flash_attention": "attn_fwd_kernel", "ssd_chunk_kernel": "ssd_chunk_kernel",
-                "grouped_matmul": "gmm_kernel"}
+# device-side names of the port's hand-written kernels (csrc/*.cu); the
+# gradient pack is two launches
+PORT_KERNELS = {"flash_attention": ("attn_fwd_kernel",), "ssd_chunk_kernel": ("ssd_chunk_kernel",),
+                "grouped_matmul": ("gmm_kernel",), "quantize_pack": ("max_kernel", "quant_kernel")}
 
 
 def report(title: str, prof, wall_s: float, top: int = 12) -> None:
@@ -56,8 +57,8 @@ def report(title: str, prof, wall_s: float, top: int = 12) -> None:
     if not rows:
         print("   no device time in the profile: device busy share not measured")
         return
-    for name, symbol in PORT_KERNELS.items():
-        mine = [r for r in rows if symbol in r[0]]
+    for name, symbols in PORT_KERNELS.items():
+        mine = [r for r in rows if any(sym in r[0] for sym in symbols)]
         us = sum(r[1] for r in mine)
         print(f"   port kernel {name}: {us / 1e3} ms x{sum(r[2] for r in mine)} "
               f"share={us / 1e6 / device_s if device_s else float('nan')}")

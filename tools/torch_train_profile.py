@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Where the training time goes on an NVIDIA card: one full-width train
+step of the PyTorch port, and one device pack of its gradients, under
+``torch.profiler``.
+
+Run from the root of a checkout, on a machine with a card:
+
+    python3 tools/torch_train_profile.py [--arch tinyllama-1.1b] [--batch 4] [--seq 1024] [--out build/torch_train_profile]
+
+``--arch`` takes any model the port trains (the dense decoders).  It
+builds the train state (bf16, random weights from a fixed seed,
+``grad_sync="int8_ef"``, no remat), runs two warm-up steps on one
+``SyntheticLM`` batch, then profiles (1) one train step and (2) one
+``make_packer("device")`` pack of that state's gradients (flatten, the
+kernel, the copy of the wire to the host).  For each window it prints what
+``tools/torch_serve_profile.py`` prints: host wall, summed device time,
+kernel count, device busy share, each port kernel's share and the kernels
+that took the most device time.  The profiler adds host time to every
+operator, so the walls are upper bounds; ``chip_smoke.py`` reports the
+step walls without it.  Chrome traces go to ``--out``.  Without a card it
+exits non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from torch_serve_profile import report  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--out", default="build/torch_train_profile")
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("torch_train_profile: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import OptHParams
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.grad_sync import make_packer
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import tree_map
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    arch = get_config(args.arch)
+    tcfg = TrainConfig(microbatches=1, remat="none", grad_sync="int8_ef")
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0), arch, tcfg)
+    step_fn = make_train_step(arch, OptHParams(lr_peak=1e-3, warmup_steps=2, total_steps=20), tcfg)
+    batch = {k: torch.from_numpy(v).long().cuda()
+             for k, v in SyntheticLM(arch, args.batch, args.seq, seed=0).make_batch(0).items()}
+    print(f"arch={arch.name} batch={args.batch} seq={args.seq} grad_sync=int8_ef remat=none")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    # (1) one train step: forward, backward, int8_ef compression, AdamW
+    for _ in range(2):  # warm-up: kernel build, allocator, cuBLAS
+        state, met = step_fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        float(met["loss"])
+        wall = time.perf_counter() - t0
+    report(f"train step B={args.batch} S={args.seq}", prof, wall)
+    prof.export_chrome_trace(str(out / f"torch_train_profile_{arch.name}_step.json"))
+
+    # (2) one device pack of this state's gradients, wire to the host
+    grads = loss_and_grads(state["params"], arch, batch, tcfg.remat)[1]
+    del state
+    ef = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device), grads)
+    pack = make_packer("device")
+    pack(grads, ef)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        data, _ = pack(grads, ef)
+        wall = time.perf_counter() - t0
+    report(f"device pack of {len(data)} wire bytes", prof, wall)
+    prof.export_chrome_trace(str(out / f"torch_train_profile_{arch.name}_pack.json"))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
