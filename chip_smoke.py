@@ -40,7 +40,9 @@ nothing of the JAX package.  In order, it:
    exchange; then the pack kernel on that full-width gradient tree over 2
    EF steps, bit for bit against its plain version and the host reference;
 6. times each kernel, its plain version and the library yardstick for the
-   same function, with CUDA events;
+   same function, with CUDA events (wall a call, the wrapper's host time
+   included), and the kernel and the yardstick by the profiler's device
+   time a call; flash attention at the serving, deepseek and train shapes;
 7. prints one JSON line of the kernels and, last, the device line.
 
 It exits non-zero, printing no result, without a card or outside a
@@ -77,6 +79,8 @@ FLASH_CASES = [
     (2, 128, 2, 1, 32, True, 0, 0, "float32"),
 ]
 SLICE_CASE = (1, 512, 32, 4, 64, True, 0, 0, "bfloat16")
+# tinyllama-1.1b's train step (phase 5): B=4, S=1024, 32 heads, 4 kv heads
+TRAIN_FLASH_CASE = (4, 1024, 32, 4, 64, True, 0, 0, "bfloat16")
 RAGGED_CASE = (1, 200, 32, 4, 64, True, 0, 0, "bfloat16")
 # zamba2-1.2b's shared block: H == KV (no GQA), kind swa with its 4096
 # window, at the longest prompt it serves and at a ragged one
@@ -166,6 +170,48 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds per call: the summed time of the kernels
+    that ``iters`` calls ran on the card, from ``torch.profiler`` (a 20-40
+    µs kernel's event-timed wall reads its wrapper's host time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    if not us > 0:
+        fail("torch.profiler saw no device time: device times not measured")
+    return us / 1e3 / iters
+
+
+def time_attention(flash_attention, attention_plain, case, gen) -> dict:
+    """Phase 6: the kernel, its plain version and SDPA on one causal case:
+    event-timed walls and, for the kernel and SDPA, device times."""
+    import torch
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = attention_inputs(case, gen)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # SDPA's (B,H,S,D)
+    gqa = case[2] != case[3]
+    kernel = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+    lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=gqa)  # noqa: E731
+    t = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(lambda: attention_plain(q, k, v, causal=True)),
+         "library_ms": cuda_ms(lib), "again_ms": cuda_ms(kernel),
+         "device_ms": device_ms(kernel), "library_device_ms": device_ms(lib)}
+    t["bound_ms"], t["bound_by"] = attention_bound_ms(case)
+    print(f"flash_attention {case}: kernel={t['ms']} ms (again {t['again_ms']} ms) device={t['device_ms']} ms "
+          f"plain={t['plain_ms']} ms sdpa={t['library_ms']} ms (device {t['library_device_ms']} ms) "
+          f"bound={t['bound_ms']} ms ({t['bound_by']})")
+    return t
 
 
 def attention_inputs(case, gen):
@@ -854,6 +900,7 @@ def grad_pack_full(grads) -> dict:
     t_kernel = cuda_ms(lambda: gp.quantize_pack(gt, et, plan.seg_dev, n_leaves, body), iters=20, warmup=3)
     t_plain = cuda_ms(lambda: gp.quantize_pack_plain(gt, et, plan.seg_dev, n_leaves, body), iters=5, warmup=1)
     t_kernel2 = cuda_ms(lambda: gp.quantize_pack(gt, et, plan.seg_dev, n_leaves, body), iters=20, warmup=3)
+    t_device = device_ms(lambda: gp.quantize_pack(gt, et, plan.seg_dev, n_leaves, body), iters=10)
     del gt, et
     torch.cuda.empty_cache()
     t_whole = cuda_ms(lambda: gp.pack_grads_fused(g, ef_k), iters=3, warmup=1)
@@ -862,10 +909,11 @@ def grad_pack_full(grads) -> dict:
     bound, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
     print(f"grad_pack {TRAIN_ARCH} gradient tree ({n_leaves} leaves, {sum(s.nelems for s in plan.specs)} elements, "
           f"{n} padded, largest leaf {max(s.nelems for s in plan.specs)}): kernel={t_kernel} ms (again {t_kernel2} ms) "
+          f"device={t_device} ms "
           f"plain={t_plain} ms whole pack_grads_fused={t_whole} ms bound={bound} ms ({bound_by}); "
           f"host reference {host_s} s a step")
     return {"ms": t_kernel, "plain_ms": t_plain, "whole_ms": t_whole, "bound_ms": bound, "bound_by": bound_by,
-            "max_abs_err": err}
+            "max_abs_err": err, "device_ms": t_device}
 
 
 # The served models, in order; the launches each kernel must make per
@@ -937,6 +985,7 @@ def main() -> int:
 
     # 3./4. each model: full-width prefill check, then serving ----------------
     by_path = {}
+    grouped_matmul.copies = 0  # operands the wrapper had to copy contiguous
     for name, per_prefill, per_step, f32_cap, f32_layers in PATHS:
         arch = get_config(name)
         t0 = time.monotonic()
@@ -958,21 +1007,15 @@ def main() -> int:
         fail(f"{TRAIN_ARCH} train path: launches {train_launches}, want {want} "
              f"({TRAIN_STEPS} steps and 2 ranks' gradients of one flash launch a layer; one pack a rank)")
     by_path[f"{TRAIN_ARCH} train"] = train_launches
+    print(f"grouped_matmul copies of a non-contiguous operand on the main paths: {grouped_matmul.copies}")
+    if grouped_matmul.copies:
+        fail(f"the main paths handed the grouped matmul {grouped_matmul.copies} operands to copy contiguous")
     gp_ms = grad_pack_full(grads)
     del grads
     torch.cuda.empty_cache()
 
-    # 6. times at the serving paths' shapes -----------------------------------
-    q, k, v = attention_inputs(SLICE_CASE, gen)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # SDPA's (B,H,S,D)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms_kernel = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
-    ms_plain = cuda_ms(lambda: attention_plain(q, k, v, causal=True))
-    ms_lib = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-    ms_kernel2 = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
-    bound, bound_by = attention_bound_ms(SLICE_CASE)
-    print(f"flash_attention {SLICE_CASE}: kernel={ms_kernel} ms (again {ms_kernel2} ms) plain={ms_plain} ms "
-          f"sdpa={ms_lib} ms bound={bound} ms ({bound_by})")
+    # 6. times at the main paths' shapes -------------------------------------
+    flash_ms = {SLICE_CASE: time_attention(flash_attention, attention_plain, SLICE_CASE, gen)}
     ssd_ms = {}
     for case in (SSD_MAMBA2, SSD_ZAMBA2):
         a, x, b, c = ssd_inputs(case, gen)
@@ -980,21 +1023,15 @@ def main() -> int:
         t_plain = cuda_ms(lambda: ssd_chunk_plain(a, x, b, c))
         t_lib = cuda_ms(ssd_yardstick(a, x, b, c))
         t_kernel2 = cuda_ms(lambda: ssd_chunk_kernel(a, x, b, c))
+        d_kernel = device_ms(lambda: ssd_chunk_kernel(a, x, b, c))
         sbound, sbound_by = ssd_bound_ms(case)
-        ssd_ms[case] = (t_kernel, t_plain, t_lib, sbound, sbound_by)
-        print(f"ssd_chunk_kernel {case}: kernel={t_kernel} ms (again {t_kernel2} ms) plain={t_plain} ms "
-              f"einsum_chain (model plain branch)={t_lib} ms bound={sbound} ms ({sbound_by})")
+        ssd_ms[case] = (t_kernel, t_plain, t_lib, sbound, sbound_by, d_kernel)
+        print(f"ssd_chunk_kernel {case}: kernel={t_kernel} ms (again {t_kernel2} ms) device={d_kernel} ms "
+              f"plain={t_plain} ms einsum_chain (model plain branch)={t_lib} ms bound={sbound} ms ({sbound_by})")
 
-    for case in DEEPSEEK_CASES[:1]:  # deepseek's attention (D=128) at S=1024
-        q, k, v = attention_inputs(case, gen_moe)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        t_kernel = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
-        t_plain = cuda_ms(lambda: attention_plain(q, k, v, causal=True))
-        t_lib = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
-        t_kernel2 = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
-        abound, abound_by = attention_bound_ms(case)
-        print(f"flash_attention {case}: kernel={t_kernel} ms (again {t_kernel2} ms) plain={t_plain} ms "
-              f"sdpa={t_lib} ms bound={abound} ms ({abound_by})")
+    # deepseek's attention (D=128) at S=1024, then the train step's
+    flash_ms[DEEPSEEK_CASES[0]] = time_attention(flash_attention, attention_plain, DEEPSEEK_CASES[0], gen_moe)
+    flash_ms[TRAIN_FLASH_CASE] = time_attention(flash_attention, attention_plain, TRAIN_FLASH_CASE, gen)
     gmm_ms = {}
     for case in (GMM_PREFILL_UP, GMM_PREFILL_DOWN, GMM_DECODE):
         x, w = gmm_inputs(case, gen_moe)
@@ -1002,14 +1039,16 @@ def main() -> int:
         t_plain = cuda_ms(lambda: grouped_matmul_plain(x, w))
         t_lib = cuda_ms(lambda: torch.bmm(x, w))
         t_kernel2 = cuda_ms(lambda: grouped_matmul(x, w))
+        d_kernel, d_lib = device_ms(lambda: grouped_matmul(x, w)), device_ms(lambda: torch.bmm(x, w))
         gbound, gbound_by = gmm_bound_ms(case)
-        gmm_ms[case] = (t_kernel, t_plain, t_lib, gbound, gbound_by)
-        print(f"grouped_matmul {case}: kernel={t_kernel} ms (again {t_kernel2} ms) plain={t_plain} ms "
-              f"torch.bmm={t_lib} ms bound={gbound} ms ({gbound_by})")
+        gmm_ms[case] = (t_kernel, t_plain, t_lib, gbound, gbound_by, d_kernel, d_lib)
+        print(f"grouped_matmul {case}: kernel={t_kernel} ms (again {t_kernel2} ms) device={d_kernel} ms "
+              f"plain={t_plain} ms torch.bmm={t_lib} ms (device {d_lib} ms) bound={gbound} ms ({gbound_by})")
 
     # 7. the record ---------------------------------------------------------------
-    g_kernel, g_plain, g_lib, gbound, gbound_by = gmm_ms[GMM_PREFILL_UP]
-    t_kernel, t_plain, t_lib, sbound, sbound_by = ssd_ms[SSD_MAMBA2]
+    g_kernel, g_plain, g_lib, gbound, gbound_by, g_device, g_lib_device = gmm_ms[GMM_PREFILL_UP]
+    t_kernel, t_plain, t_lib, sbound, sbound_by, t_device = ssd_ms[SSD_MAMBA2]
+    fl = flash_ms[SLICE_CASE]
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -1018,11 +1057,14 @@ def main() -> int:
         "launches": sum(p["flash_attention"] for p in by_path.values()),
         "launches_by_path": {n: p["flash_attention"] for n, p in by_path.items()},
         "max_abs_err": errs[SLICE_CASE],
-        "ms": ms_kernel,
-        "plain_ms": ms_plain,
-        "bound_ms": bound,
-        "bound_by": bound_by,
-        "library_ms": ms_lib,
+        "ms": fl["ms"],
+        "plain_ms": fl["plain_ms"],
+        "bound_ms": fl["bound_ms"],
+        "bound_by": fl["bound_by"],
+        "library_ms": fl["library_ms"],
+        "device_ms": fl["device_ms"],
+        "library_device_ms": fl["library_device_ms"],
+        "at_shapes": {f"B={c[0]} S={c[1]} H={c[2]} KV={c[3]} D={c[4]}": flash_ms[c] for c in flash_ms},
         "check": "pass",
     }, {
         "name": "ssd_chunk_kernel",
@@ -1037,6 +1079,7 @@ def main() -> int:
         "bound_ms": sbound,
         "bound_by": sbound_by,
         "library_ms": t_lib,
+        "device_ms": t_device,
         "check": "pass",
     }, {
         "name": "grouped_matmul",
@@ -1051,6 +1094,11 @@ def main() -> int:
         "bound_ms": gbound,
         "bound_by": gbound_by,
         "library_ms": g_lib,
+        "device_ms": g_device,
+        "library_device_ms": g_lib_device,
+        "at_shapes": {f"E={c[0]} C={c[1]} D={c[2]} F={c[3]}": dict(zip(
+            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms", "library_device_ms"), gmm_ms[c]))
+            for c in gmm_ms},
         "check": "pass",
     }, {
         "name": "grad_pack",
@@ -1065,6 +1113,7 @@ def main() -> int:
         "bound_ms": gp_ms["bound_ms"],
         "bound_by": gp_ms["bound_by"],
         "library_ms": None,
+        "device_ms": gp_ms["device_ms"],
         "whole_pack_ms": gp_ms["whole_ms"],
         "check": "pass",
     }]}))

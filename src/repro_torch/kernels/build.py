@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds).  Libraries land in ``build/repro_torch_kernels/`` at the
-root of the checkout, named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+root of the checkout, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded as it is.
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
 them together.  Nothing here runs at import time.
 """
@@ -47,9 +48,14 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu``'s library goes: named by a hash of the
+    source, of every header in ``csrc/`` (a source may include any of
+    them) and of the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:

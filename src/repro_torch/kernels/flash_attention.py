@@ -6,7 +6,10 @@ The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 header for its design.  :func:`flash_attention` picks the route by the
 tensors' device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor takes :func:`attention_plain`.  Unlike the TPU kernel, any sequence
-length works: the kernel masks the ragged tail itself.
+length works: the kernel masks the ragged tail itself.  bf16 inputs go to
+the tensor-core route, whose 16-byte copies want each of q, k, v to start
+on 16 bytes with its (B, S, H) strides a multiple of 8 elements: the
+wrapper raises on any other layout rather than copy it.
 """
 from __future__ import annotations
 
@@ -87,6 +90,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, chunk
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dim must be contiguous")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            steps = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+            if t.data_ptr() % 16 or any(st % 8 for st in steps):
+                raise ValueError(f"flash_attention: bf16 {name} must start on 16 bytes with (B, S, H) strides a "
+                                 f"multiple of 8 elements for the 16-byte copies; got strides {t.stride()}")
     if window < 0 or chunk < 0:
         raise ValueError(f"flash_attention: window {window} and chunk {chunk} must be >= 0")
     if max(h, b) > 65535:

@@ -8,7 +8,10 @@ expert's token queue against its own weights, in f32, cast to x's dtype.
 :func:`grouped_matmul` picks the route by the tensors' device: a CUDA
 tensor launches the kernel (or raises), a CPU tensor takes
 :func:`grouped_matmul_plain`.  Unlike the TPU kernel, any C, D and F work:
-the kernel masks the ragged tiles itself.
+the kernel masks the ragged tiles itself.  The kernel reads x and w through
+their strides but wants their last dims (D and F) contiguous: the wrapper
+copies an operand whose last dim is not (same values, so the same result
+bit for bit) and counts it in ``grouped_matmul.copies``.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from .guard import refuse_autograd
 __all__ = ["grouped_matmul", "grouped_matmul_plain", "DTYPES"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BLOCK_C = 64  # output rows of one block: BC in csrc/moe_gmm.cu
+BLOCK_C = 64  # output rows of one block of the f32 route: BC in csrc/moe_gmm.cu
 
 
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -54,13 +57,20 @@ def _lib():
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, C, D) × w (E, D, F) → (E, C, F) in x's dtype.  CUDA tensors
-    run the kernel (read through their strides), CPU tensors
+    run the kernel (read through their strides; an operand whose last dim
+    is not contiguous is first copied contiguous), CPU tensors
     :func:`grouped_matmul_plain`.  ``grouped_matmul.launches`` counts
-    kernel launches."""
+    kernel launches, ``grouped_matmul.copies`` the copies."""
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w)
     _check(x, w)
     refuse_autograd("grouped_matmul", x, w)
+    if x.shape[2] > 1 and x.stride(2) != 1:
+        x = x.contiguous()
+        grouped_matmul.copies += 1
+    if w.shape[2] > 1 and w.stride(2) != 1:
+        w = w.contiguous()
+        grouped_matmul.copies += 1
     e, c, d = x.shape
     f = w.shape[2]
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
@@ -78,3 +88,4 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 grouped_matmul.launches = 0
+grouped_matmul.copies = 0

@@ -8,8 +8,12 @@
   a card they raise instead of carrying on on the CPU.
 * The CUDA kernels (flash attention, the SSD chunk scan, the grouped
   matmul) agree with their plain versions (``gpu``-marked: need
-  a card, decided inside the test).  This file imports no JAX, so those
-  tests run on a machine that has none.
+  a card, decided inside the test); the bf16 routes of flash attention
+  and the grouped matmul run on the tensor cores (``HMMA`` in their
+  SASS).  This file imports no JAX, so those tests run on a machine that
+  has none.
+* A library is named by a hash of its source and of the shared headers,
+  so an edited header rebuilds every kernel.
 * A kernel wrapper refuses inputs that require grad under grad mode (its
   output would be silently detached); the train path goes through the
   flash-attention kernel by ``FlashAttentionFn``, whose gradients equal
@@ -122,6 +126,18 @@ def test_entry_points_run_on_the_cpu_when_asked(no_card):
     (2, 256, 4, 2, 64, True, 0, 128, torch.float32),
     (1, 77, 4, 2, 128, False, 0, 0, torch.float32),
     (1, 130, 4, 2, 16, True, 0, 0, torch.float32),
+    # the bf16 tensor-core route: every head dim, every mask, B = 2, tails
+    # below one tile, and the train shape
+    (1, 130, 4, 2, 16, True, 0, 0, torch.bfloat16),
+    (2, 200, 8, 2, 32, True, 0, 0, torch.bfloat16),
+    (1, 777, 16, 16, 128, True, 0, 0, torch.bfloat16),  # deepseek-moe-16b's attention
+    (1, 77, 4, 2, 128, False, 0, 0, torch.bfloat16),
+    (2, 256, 4, 2, 64, True, 0, 128, torch.bfloat16),
+    (2, 256, 8, 2, 64, True, 64, 0, torch.bfloat16),
+    (1, 1, 4, 2, 64, True, 0, 0, torch.bfloat16),
+    (1, 15, 4, 2, 64, True, 0, 0, torch.bfloat16),
+    (2, 65, 4, 2, 32, False, 0, 0, torch.bfloat16),
+    (4, 1024, 32, 4, 64, True, 0, 0, torch.bfloat16),  # tinyllama-1.1b's train step
 ])
 def test_cuda_kernel_matches_plain(case):
     if not torch.cuda.is_available():
@@ -143,6 +159,31 @@ def test_cuda_kernel_matches_plain(case):
     assert (out.float() - ref.float()).abs().max().item() < tol
     with pytest.raises(ValueError):
         flash_attention(q[..., : d // 2 + 1], k[..., : d // 2 + 1], v[..., : d // 2 + 1])
+
+
+@pytest.mark.gpu
+def test_cuda_flash_refuses_a_layout_the_copies_cannot_take():
+    """The bf16 route copies 16 bytes at a time: a q, k or v whose start or
+    (B, S, H) strides do not sit on 16 bytes is refused (ValueError, no
+    launch), never copied; the same values laid out well run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    buf = torch.randn((1, 64, 2 * 64 + 4), generator=gen, device="cuda").to(torch.bfloat16)
+    odd_rows = buf.as_strided((1, 64, 2, 64), (64 * 132, 132, 64, 1))  # S stride 132
+    odd_start = buf.view(-1)[1:1 + 64 * 2 * 64].view(1, 64, 2, 64)  # starts 2 bytes off
+    good = odd_rows.contiguous()
+    before = flash_attention.launches
+    for bad in (odd_rows, odd_start):
+        for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+            with pytest.raises(ValueError, match="16 bytes"):
+                flash_attention(*args)
+    assert flash_attention.launches == before
+    out = flash_attention(good, good, good)
+    torch.cuda.synchronize()
+    assert (out.float() - attention_plain(good, good, good).float()).abs().max().item() < 4e-2
 
 
 @pytest.mark.gpu
@@ -202,6 +243,11 @@ def test_cuda_ssd_kernel_matches_plain(case, dtype):
     ((64, 32, 2048, 1408), torch.bfloat16, 0.125),
     ((3, 33, 70, 45), torch.float32, 0.05),  # ragged C, D and F
     ((2, 3, 5, 7), torch.bfloat16, 0.05),
+    # ragged bf16 on the tensor-core route: C below, at and past one
+    # 128-row tile; D and F off every tile and off 16 bytes
+    ((2, 1, 70, 45), torch.bfloat16, 0.05),
+    ((2, 127, 70, 45), torch.bfloat16, 0.05),
+    ((2, 129, 70, 45), torch.bfloat16, 0.05),
 ])
 def test_cuda_grouped_matmul_matches_plain(case, dtype, w_scale):
     if not torch.cuda.is_available():
@@ -227,7 +273,7 @@ def test_cuda_grouped_matmul_matches_plain(case, dtype, w_scale):
     # strided views read the same as contiguous inputs, bit for bit
     xs = x.transpose(1, 2).contiguous().transpose(1, 2)  # D-major queues
     ws = w.transpose(1, 2).contiguous().transpose(1, 2)  # D-major weights
-    assert not xs.is_contiguous() and not ws.is_contiguous()
+    assert (c == 1 or not xs.is_contiguous()) and not ws.is_contiguous()  # (E, 1, D) has no D-major layout
     assert torch.equal(grouped_matmul(xs, ws), out)
     assert grouped_matmul.launches == before + 2
     with pytest.raises(ValueError):
@@ -250,6 +296,72 @@ def test_cuda_grouped_matmul_rows_do_not_depend_on_the_batch():
     both = grouped_matmul(q.view(64, 32, 256), w).view(64, 8, 4, 96)
     for b in (0, 5):
         assert torch.equal(grouped_matmul(q[:, b], w), both[:, b])
+    # deepseek-moe-16b's gate/up: rows 0-31 of a prefill's C = 120 queues
+    # equal the same rows run as a decode step's C = 32
+    x = torch.randn((64, 120, 2048), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((64, 2048, 1408), generator=gen, device="cuda") / 8).to(torch.bfloat16)
+    assert torch.equal(grouped_matmul(x, w)[:, :32], grouped_matmul(x[:, :32].contiguous(), w))
+
+
+@pytest.mark.gpu
+def test_cuda_grouped_matmul_reads_padded_rows_as_packed_ones():
+    """Rows that start on 16 bytes inside wider buffers (the route of
+    16-byte copies, with pieces cut short at D and F) and the same values
+    packed (rows off 16 bytes: scalar loads) give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.moe_gmm import grouped_matmul, grouped_matmul_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xbuf = torch.randn((2, 129, 80), generator=gen, device="cuda").to(torch.bfloat16)
+    wbuf = (torch.randn((2, 70, 48), generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    x, w = xbuf[:, :, :70], wbuf[:, :, :45]
+    out = grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    ref = grouped_matmul_plain(x, w)
+    assert (out.float() - ref.float()).abs().max().item() <= 2.0**-7 * ref.float().abs().max().item()
+    assert torch.equal(grouped_matmul(x.contiguous(), w.contiguous()), out)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_routes_run_on_the_tensor_cores():
+    """The built flash-attention and grouped-matmul libraries hold tensor-
+    core products (``HMMA``, or Hopper's ``HGMMA``) in their SASS, read by
+    ``cuobjdump`` from the toolkit of ``nvcc``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
+    for name, lib in build.build(["flash_attention", "moe_gmm"]).items():
+        sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)], capture_output=True, text=True,
+                              check=True).stdout
+        assert "HMMA" in sass or "HGMMA" in sass, f"{name}: no tensor-core instruction in {lib.name}"
+
+
+def test_an_edited_header_rebuilds_every_kernel(tmp_path, monkeypatch):
+    """Libraries are named by the source, every ``csrc/*.cuh`` and the
+    flags: an edit to a shared header gives every kernel a new name, an
+    untouched tree the same one."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    names = ("flash_attention", "moe_gmm", "ssd_scan", "grad_pack")
+    before = {n: build._target(n) for n in names}
+    assert before == {n: build._target(n) for n in names}
+    headers = sorted(csrc.glob("*.cuh"))
+    assert [h.name for h in headers] == ["tensor_core.cuh"]
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = {n: build._target(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    (csrc / "new_helpers.cuh").write_text("#pragma once\n")
+    assert all(build._target(n) != after[n] for n in names)
 
 
 @pytest.mark.gpu
