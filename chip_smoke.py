@@ -43,6 +43,8 @@ nothing of the JAX package.  In order, it:
    same function, with CUDA events (wall a call, the wrapper's host time
    included), and the kernel and the yardstick by the profiler's device
    time a call; flash attention at the serving, deepseek and train shapes;
+   the SSD kernel at mamba2's and zamba2's, with its share of the bound
+   and the heads a block takes;
 7. prints one JSON line of the kernels and, last, the device line.
 
 It exits non-zero, printing no result, without a card or outside a
@@ -1025,8 +1027,9 @@ def main() -> int:
         t_kernel2 = cuda_ms(lambda: ssd_chunk_kernel(a, x, b, c))
         d_kernel = device_ms(lambda: ssd_chunk_kernel(a, x, b, c))
         sbound, sbound_by = ssd_bound_ms(case)
-        ssd_ms[case] = (t_kernel, t_plain, t_lib, sbound, sbound_by, d_kernel)
+        ssd_ms[case] = (t_kernel, t_plain, t_lib, sbound, sbound_by, d_kernel, ssd_chunk_kernel.heads_per_block)
         print(f"ssd_chunk_kernel {case}: kernel={t_kernel} ms (again {t_kernel2} ms) device={d_kernel} ms "
+              f"({sbound / d_kernel} of the bound, {ssd_chunk_kernel.heads_per_block} heads a block) "
               f"plain={t_plain} ms einsum_chain (model plain branch)={t_lib} ms bound={sbound} ms ({sbound_by})")
 
     # deepseek's attention (D=128) at S=1024, then the train step's
@@ -1047,7 +1050,7 @@ def main() -> int:
 
     # 7. the record ---------------------------------------------------------------
     g_kernel, g_plain, g_lib, gbound, gbound_by, g_device, g_lib_device = gmm_ms[GMM_PREFILL_UP]
-    t_kernel, t_plain, t_lib, sbound, sbound_by, t_device = ssd_ms[SSD_MAMBA2]
+    t_kernel, t_plain, t_lib, sbound, sbound_by, t_device, _ = ssd_ms[SSD_MAMBA2]
     fl = flash_ms[SLICE_CASE]
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
@@ -1080,6 +1083,9 @@ def main() -> int:
         "bound_by": sbound_by,
         "library_ms": t_lib,
         "device_ms": t_device,
+        "at_shapes": {f"B={c[0]} H={c[1]} G={c[2]} nc={c[3]} Q={c[4]} P={c[5]} N={c[6]}": dict(zip(
+            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms", "heads_per_block"), ssd_ms[c]))
+            for c in ssd_ms},
         "check": "pass",
     }, {
         "name": "grouped_matmul",

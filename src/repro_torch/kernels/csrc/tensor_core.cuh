@@ -1,5 +1,6 @@
 // Tensor-core building blocks shared by the bf16 paths of
-// flash_attention.cu and moe_gmm.cu (sm_80 instructions, all on sm_90a):
+// flash_attention.cu, moe_gmm.cu and ssd_scan.cu (sm_80 instructions, all
+// on sm_90a):
 // 16-byte asynchronous copies global -> shared (`cp.async`, zero-filling
 // past a given byte count), `ldmatrix` loads of 8x8 bf16 tiles from shared
 // memory into mma fragments (plain and transposed), and the warp-wide
@@ -81,6 +82,22 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The two bf16 values of one register, as floats (low half first).
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// Two floats split into a bf16 pair each, v = hi + lo to about 2^-16 of
+// |v|: hi = bf16(v), lo = bf16(v - hi) (the difference is exact in f32).
+// Two mma.sync products, by hi and by lo, then carry an f32 operand
+// through the tensor cores to about 2^-16, where one bf16 rounding gives
+// 2^-9.
+__device__ __forceinline__ void split_bf16x2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16x2(v0, v1);
+  const float2 h = unpack_bf16x2(hi);
+  lo = pack_bf16x2(v0 - h.x, v1 - h.y);
 }
 
 }  // namespace tc

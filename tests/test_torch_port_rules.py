@@ -1,17 +1,19 @@
 """Rules the PyTorch/CUDA port keeps.
 
 * Nothing under ``src/repro_torch/``, and not ``chip_smoke.py``,
-  ``tools/torch_serve_profile.py`` or ``tools/torch_train_profile.py``,
+  ``tools/torch_serve_profile.py``, ``tools/torch_train_profile.py`` or
+  ``tools/torch_ssd_bench.py``,
   imports ``jax``, ``ml_dtypes`` or the JAX package ``repro``
   (``repro_torch`` is the port).
 * Entry points run on ``cuda`` unless the caller asks for the CPU; without
   a card they raise instead of carrying on on the CPU.
 * The CUDA kernels (flash attention, the SSD chunk scan, the grouped
   matmul) agree with their plain versions (``gpu``-marked: need
-  a card, decided inside the test); the bf16 routes of flash attention
-  and the grouped matmul run on the tensor cores (``HMMA`` in their
-  SASS).  This file imports no JAX, so those tests run on a machine that
-  has none.
+  a card, decided inside the test); the bf16 routes of flash attention,
+  the grouped matmul and the SSD chunk scan run on the tensor cores
+  (``HMMA`` in their SASS), and the SSD kernel's slice of heads a block
+  changes no bit.  This file imports no JAX, so those tests run on a
+  machine that has none.
 * A library is named by a hash of its source and of the shared headers,
   so an edited header rebuilds every kernel.
 * A kernel wrapper refuses inputs that require grad under grad mode (its
@@ -38,7 +40,8 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tools" / "torch_serve_profile.py", REPO / "tools" / "torch_train_profile.py"]
+    REPO / "chip_smoke.py", REPO / "tools" / "torch_serve_profile.py", REPO / "tools" / "torch_train_profile.py",
+    REPO / "tools" / "torch_ssd_bench.py"]
 
 
 def _imported_roots(path: Path):
@@ -196,15 +199,27 @@ def test_cuda_flash_refuses_a_layout_the_copies_cannot_take():
     ((1, 24, 1, 16, 64, 64, 128), torch.bfloat16),  # mamba2-130m prefill, S=1024
     ((1, 64, 1, 16, 64, 64, 64), torch.bfloat16),  # zamba2-1.2b prefill, S=1024
     ((2, 8, 1, 3, 8, 16, 16), torch.float32),  # the smoke configs' shape
+    # the bf16 tensor-core route: Q of 2 and 8 tiles and a ragged Q (not a
+    # multiple of 16), P = 32, N = 64 and 128, groups, one chunk, and
+    # ragged P and N (zero-filled pieces of 8 bytes)
+    ((1, 4, 1, 2, 32, 64, 128), torch.bfloat16),
+    ((1, 2, 1, 2, 128, 64, 64), torch.bfloat16),
+    ((2, 4, 2, 3, 20, 64, 64), torch.bfloat16),
+    ((1, 8, 8, 1, 64, 32, 128), torch.bfloat16),
+    ((2, 4, 2, 3, 64, 32, 64), torch.bfloat16),
+    ((1, 6, 2, 3, 64, 64, 128), torch.bfloat16),
+    ((1, 4, 1, 1, 64, 64, 128), torch.bfloat16),
+    ((2, 8, 1, 3, 8, 16, 16), torch.bfloat16),
+    ((1, 3, 1, 2, 36, 20, 44), torch.bfloat16),
 ])
 def test_cuda_ssd_kernel_matches_plain(case, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from repro_torch.kernels.ssd_scan import _lib, smem_bytes, ssd_chunk_kernel, ssd_chunk_plain
+    from repro_torch.kernels.ssd_scan import DTYPES, _lib, smem_bytes, ssd_chunk_kernel, ssd_chunk_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     bsz, h, g, nc, q, p, n = case
-    assert smem_bytes(q, p, n) == _lib().repro_ssd_chunk_smem_bytes(q, p, n)
+    assert smem_bytes(q, p, n, dtype) == _lib().repro_ssd_chunk_smem_bytes(DTYPES[dtype], q, p, n)
     gen = torch.Generator(device="cuda").manual_seed(sum(case))
     a = -torch.randn((bsz, h, nc, q), generator=gen, device="cuda").abs() * 0.1
     x = torch.randn((bsz, h, nc, q, p), generator=gen, device="cuda").to(dtype)
@@ -225,8 +240,65 @@ def test_cuda_ssd_kernel_matches_plain(case, dtype):
     xs = x.permute(0, 2, 3, 1, 4).contiguous().permute(0, 3, 1, 2, 4)
     ys, ss = ssd_chunk_kernel(a, xs, b, c)
     assert torch.equal(ys, y) and torch.equal(ss, st)
+    # rows off 16 bytes (x and b: row strides of P + 2 and N + 2 elements)
+    # and a start off 16 bytes (c) give the same bits as aligned ones
+    xo = torch.nn.functional.pad(x, (0, 2))[..., :p]
+    bo = torch.nn.functional.pad(b, (0, 2))[..., :n]
+    co = torch.empty(c.numel() + 1, dtype=dtype, device="cuda")[1:].view_as(c).copy_(c)
+    yo, so = ssd_chunk_kernel(a, xo, bo, co)
+    assert torch.equal(yo, y) and torch.equal(so, st)
     with pytest.raises(ValueError):
         ssd_chunk_kernel(a, x.transpose(-1, -2).contiguous().transpose(-1, -2), b, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # (B, H, G, nc, Q, P, N): 6 heads over 2 groups (slices of 2 leave 2 + 1
+    # heads a group), and mamba2-130m's prefill
+    (1, 6, 2, 3, 64, 64, 128),
+    (1, 24, 1, 16, 64, 64, 128),
+])
+def test_cuda_ssd_heads_per_block_gives_the_same_bits(case):
+    """The bf16 route computes S = C·Bᵀ once a block for a slice of a
+    group's heads: every slice size, one that does not divide the group's
+    heads included, gives the same bits as one head a block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.ssd_scan import DTYPES, _lib, _opt_in, smem_bytes, ssd_chunk_kernel, ssd_chunk_plain
+
+    bsz, h, g, nc, q, p, n = case
+    gen = torch.Generator(device="cuda").manual_seed(sum(case))
+    a = -torch.randn((bsz, h, nc, q), generator=gen, device="cuda").abs() * 0.1
+    x = torch.randn((bsz, h, nc, q, p), generator=gen, device="cuda").to(torch.bfloat16)
+    b = (torch.randn((bsz, g, nc, q, n), generator=gen, device="cuda") * 0.3).to(torch.bfloat16)
+    c = (torch.randn((bsz, g, nc, q, n), generator=gen, device="cuda") * 0.3).to(torch.bfloat16)
+    y, st = ssd_chunk_kernel(a, x, b, c)
+    _opt_in(x.device, DTYPES[torch.bfloat16], smem_bytes(q, p, n, torch.bfloat16))
+    for hpb in range(1, h // g + 1):
+        yk, sk = torch.empty_like(y), torch.empty_like(st)
+        rc = _lib().repro_ssd_chunk_fwd(
+            a.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(), yk.data_ptr(), sk.data_ptr(),
+            DTYPES[torch.bfloat16], bsz, h, g, nc, q, p, n, hpb,
+            *a.stride(), *x.stride()[:4], *b.stride()[:4], *c.stride()[:4],
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert rc == 0
+        assert torch.equal(yk, y) and torch.equal(sk, st), f"{hpb} heads a block"
+    py, ps = ssd_chunk_plain(a, x, b, c)
+    assert (y.float() - py.float()).abs().max().item() <= 2.0**-7 * py.float().abs().max().item()
+    assert (st - ps).abs().max().item() <= 1e-4 * max(1.0, ps.abs().max().item())
+
+
+def test_ssd_heads_per_block_fills_one_wave():
+    """The bf16 route's slice of heads: the fewest that fit the cells into
+    one wave of the card's block slots, within [1, the group's heads]."""
+    from repro_torch.kernels.ssd_scan import heads_per_block
+
+    assert heads_per_block(384, 24, 396) == 1  # mamba2-130m at S=1024: 384 cells, 132 SMs x 3
+    assert heads_per_block(1024, 64, 528) == 2  # zamba2-1.2b at S=1024: 1024 cells, 132 SMs x 4
+    assert heads_per_block(1024, 64, 396) == 3
+    assert heads_per_block(10**6, 24, 396) == 24  # never past the group
+    assert heads_per_block(1, 1, 396) == 1
 
 
 @pytest.mark.gpu
@@ -325,8 +397,8 @@ def test_cuda_grouped_matmul_reads_padded_rows_as_packed_ones():
 
 @pytest.mark.gpu
 def test_cuda_bf16_routes_run_on_the_tensor_cores():
-    """The built flash-attention and grouped-matmul libraries hold tensor-
-    core products (``HMMA``, or Hopper's ``HGMMA``) in their SASS, read by
+    """The built flash-attention, grouped-matmul and SSD libraries hold
+    tensor-core products (``HMMA``, or Hopper's ``HGMMA``) in their SASS, read by
     ``cuobjdump`` from the toolkit of ``nvcc``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -335,7 +407,7 @@ def test_cuda_bf16_routes_run_on_the_tensor_cores():
     from repro_torch.kernels import build
 
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
-    for name, lib in build.build(["flash_attention", "moe_gmm"]).items():
+    for name, lib in build.build(["flash_attention", "moe_gmm", "ssd_scan"]).items():
         sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)], capture_output=True, text=True,
                               check=True).stdout
         assert "HMMA" in sass or "HGMMA" in sass, f"{name}: no tensor-core instruction in {lib.name}"

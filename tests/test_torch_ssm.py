@@ -6,7 +6,9 @@
 * ``ssd_chunked`` (a ragged S included), ``ssm_apply`` and ``ssm_decode``
   against the JAX module in its CPU default (xla) mode, on bridged f32
   inputs within 1e-4;
-* the kernel route's views and casts against the plain route.
+* the kernel route's views and casts against the plain route;
+* the roundings of the CUDA kernel's bf16 (tensor-core) route, emulated
+  in f32 here, against the Pallas kernel at mamba2-130m's widths.
 
 The CUDA kernel's own check against its plain version is ``gpu``-marked
 in ``tests/test_torch_port_rules.py``, which imports no JAX.  Inputs are
@@ -110,6 +112,57 @@ def test_ssd_chunk_rejects_bad_inputs():
         ssd_chunk_kernel(a, x, b, c[..., :-1])  # b and c disagree
     with pytest.raises(TypeError):
         ssd_chunk_kernel(a, x, b.double(), c)
+
+
+def _split_bf16(v):
+    """v = hi + lo, each a bf16 value: hi = bf16(v), lo = bf16(v - hi)."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _tensor_core_route(a, x, b, c, split_state=True):
+    """The bf16 route of ``csrc/ssd_scan.cu`` as it rounds, in f32 on the
+    CPU: S = C·Bᵀ in f32 (bf16 operands, so every product is exact); S ⊙ L
+    split hi + lo, each term times X summed in f32; the decay-weighted X
+    split hi + lo, each term times B summed in f32; y rounded to bf16 once.
+    ``split_state=False`` rounds the decay-weighted X to bf16 once."""
+    h, g = x.shape[1], b.shape[1]
+    xf = x.float()
+    bf = b.float().repeat_interleave(h // g, dim=1)
+    cf = c.float().repeat_interleave(h // g, dim=1)
+    acs = torch.cumsum(a, dim=-1)
+    q = a.shape[-1]
+    causal = torch.ones((q, q), dtype=torch.bool).tril()
+    L = torch.where(causal, torch.exp(acs[..., :, None] - acs[..., None, :]), torch.zeros(()))
+    hi, lo = _split_bf16(torch.einsum("bhcin,bhcjn->bhcij", cf, bf) * L)
+    y = (hi @ xf + lo @ xf).to(x.dtype)
+    w = xf * torch.exp(acs[..., -1:] - acs)[..., None]
+    if not split_state:
+        return y, w.to(torch.bfloat16).float().transpose(-1, -2) @ bf
+    hi, lo = _split_bf16(w)
+    return y, hi.transpose(-1, -2) @ bf + lo.transpose(-1, -2) @ bf
+
+
+def test_tensor_core_route_roundings_hold_the_tolerances():
+    """At mamba2-130m's widths (H=24, G=1, Q=64, P=64, N=128; 2 chunks)
+    in bf16, the tensor-core route's roundings stay within the card's
+    tolerances of the Pallas kernel (interpret mode): y within 2^-7 of
+    max |y|, the f32 states within 1e-4 of max(1, max |state|).  One bf16
+    rounding of the decay-weighted X instead of the hi + lo split breaks
+    the states' tolerance: the reason for the split."""
+    a, x, b, c = _chunk_inputs((1, 24, 1, 2, 64, 64, 128))
+    jy, js = j_ssd_kernel(jnp.asarray(a), *(jnp.asarray(v).astype(jnp.bfloat16) for v in (x, b, c)), interpret=True)
+    jy, js = np.asarray(jy.astype(jnp.float32)), np.asarray(js)
+    at = torch.from_numpy(a)
+    xt, bt, ct = (torch.from_numpy(v).to(torch.bfloat16) for v in (x, b, c))
+    y_tol = 2.0**-7 * np.abs(jy).max()
+    s_tol = 1e-4 * max(1.0, np.abs(js).max())
+    ty, ts = _tensor_core_route(at, xt, bt, ct)
+    assert ty.dtype == torch.bfloat16 and ts.dtype == torch.float32
+    assert _err(jy, ty) <= y_tol
+    assert _err(js, ts) <= s_tol
+    _, ts_once = _tensor_core_route(at, xt, bt, ct, split_state=False)
+    assert _err(js, ts_once) > s_tol
 
 
 def _seq_inputs(bsz, s, h, g, p, n, seed):
