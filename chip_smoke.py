@@ -39,12 +39,24 @@ nothing of the JAX package.  In order, it:
    with every kernel's count set to 0 before the steps and read after the
    exchange; then the pack kernel on that full-width gradient tree over 2
    EF steps, bit for bit against its plain version and the host reference;
+5b. trains the other families, the SSD and grouped-matmul kernels inside
+   their ``autograd.Function``s: for each of ``mamba2-130m``,
+   ``zamba2-1.2b`` (its shared block at layer 0 included) and
+   ``deepseek-moe-16b``, first the train step's loss and gradients through
+   the kernels against the plain path (full width, first 2 layers, f32 and
+   bf16; deepseek's runs on one run's expert choices, their gates and aux
+   loss from their own router, see ``routes``); then 8 bf16 steps on one
+   fixed batch (mamba2 and zamba2 at full depth with int8 error feedback,
+   deepseek cut to 4 layers with the default grad sync): the loss must
+   fall, and each kernel must launch exactly its count a step;
 6. times each kernel, its plain version and the library yardstick for the
    same function, with CUDA events (wall a call, the wrapper's host time
    included), and the kernel and the yardstick by the profiler's device
    time a call; flash attention at the serving, deepseek and train shapes;
    the SSD kernel at mamba2's and zamba2's, with its share of the bound
-   and the heads a block takes;
+   and the heads a block takes; and the host time a call of the SSD and
+   grouped-matmul wrappers and of their ``autograd.Function``s under
+   ``inference_mode`` (the serving route);
 7. prints one JSON line of the kernels and, last, the device line.
 
 It exits non-zero, printing no result, without a card or outside a
@@ -193,6 +205,23 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     if not us > 0:
         fail("torch.profiler saw no device time: device times not measured")
     return us / 1e3 / iters
+
+
+def host_us(fn, iters: int = 200, warmup: int = 5) -> float:
+    """Mean host microseconds to issue one call: ``iters`` calls timed on
+    the host clock with no synchronization inside the window (the launch
+    queue does not fill at these counts), synchronized after it."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
 
 
 def time_attention(flash_attention, attention_plain, case, gen) -> dict:
@@ -397,11 +426,15 @@ class plain_kernels:
 class routes:
     """Within the block, every MoE layer's routing (expert ids, positions,
     keep mask, gates, capacity, aux) is appended to ``self.routes`` in call
-    order; given ``replay`` (another block's ``routes``), each layer takes
-    the replayed routing in that order in place of its own."""
+    order, detached; given ``replay`` (another block's ``routes``), each
+    layer takes the replayed routing in that order in place of its own.
+    With ``regate`` (training) only the discrete choices are replayed: the
+    expert ids, and with them the positions, keep mask and capacity; the
+    gates and the aux loss come from this run's own router probabilities at
+    those ids, so the router's gradient is this run's."""
 
-    def __init__(self, replay=None):
-        self.replay, self.routes = replay, []
+    def __init__(self, replay=None, regate=False):
+        self.replay, self.regate, self.routes = replay, regate, []
 
     def __enter__(self):
         from repro_torch.models import moe
@@ -409,8 +442,16 @@ class routes:
         self.moe, self.real = moe, moe._route
 
         def route(p, x, cfg):
-            out = self.replay[len(self.routes)] if self.replay is not None else self.real(p, x, cfg)
-            self.routes.append(out)
+            if self.replay is None:
+                out = self.real(p, x, cfg)
+            elif self.regate:
+                b, s, _ = x.shape
+                idx = self.replay[len(self.routes)][0].reshape(b, cfg.top_k, s).transpose(1, 2)
+                probs = moe._router_probs(p, x)
+                out = moe._assign(probs, probs.gather(-1, idx), idx, cfg)
+            else:
+                out = self.replay[len(self.routes)]
+            self.routes.append(tuple(t.detach() if hasattr(t, "detach") else t for t in out))
             return out
 
         moe._route = route
@@ -918,6 +959,105 @@ def grad_pack_full(grads) -> dict:
             "max_abs_err": err, "device_ms": t_device}
 
 
+def family_train_gate(ops, name, f32_cap) -> None:
+    """Phase 5b: one family's train step, loss and gradients through the
+    kernels against the plain path, at full width on its first
+    TRAIN_GATE_LAYERS layers, f32 and bf16 (see FAMILY_TRAINS).  A MoE
+    model's four runs share the f32 kernel run's expert choices, each with
+    its own gates and aux loss (``routes(regate=True)``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import tree_map
+
+    arch = get_config(name).variant(n_layers=TRAIN_GATE_LAYERS)
+    arch32 = arch.variant(dtype="float32")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), arch)
+    p32 = tree_map(lambda t: t.float(), params)
+    batch = train_batch(arch, 0)
+    with routes() as r32:
+        (lk32, mk32), gk32 = loss_and_grads(p32, arch32, batch)
+    replay = r32.routes if r32.routes else None
+    with plain_kernels(ops):
+        with routes(replay, regate=True):
+            (lp32, mp32), gp32 = loss_and_grads(p32, arch32, batch)
+        with routes(replay, regate=True):
+            (lp, _), gp = loss_and_grads(params, arch, batch)
+    with routes(replay, regate=True):
+        (lk, mk), gk = loss_and_grads(params, arch, batch)
+    torch.cuda.synchronize()
+    f32 = _grad_rel(gk32, gp32, gp32)
+    bf16 = _grad_rel(gk, gp, gp)
+    rel_k, rel_p = _grad_rel(gk, gp32, gp32), _grad_rel(gp, gp32, gp32)
+    lf32 = abs(lk32.item() - lp32.item()) / lp32.item()
+    aux = f" aux f32 kernels {mk32['aux'].item()} plain {mp32['aux'].item()} bf16 kernels {mk['aux'].item()};" if replay else ""
+    print(f"train gate ({name}, {TRAIN_GATE_LAYERS} layers, full width, B={TRAIN_B} S={TRAIN_S}"
+          f"{', expert choices of the f32 kernel run' if replay else ''}): f32 kernels vs plain: loss rel={lf32} "
+          f"grads rel={f32} tol={FAMILY_F32_TOL};{aux} bf16 kernels vs bf16 plain: grads rel={bf16}; vs f32 plain: "
+          f"kernels rel={rel_k} plain rel={rel_p} tol=min(plain + {F32_MARGIN}, {f32_cap})")
+    ok = f32 <= FAMILY_F32_TOL and lf32 <= FAMILY_F32_TOL and rel_k <= rel_p + F32_MARGIN and rel_k <= f32_cap
+    if not (ok and all(math.isfinite(x) for x in (f32, bf16, rel_k, rel_p, lk.item()))):
+        fail(f"{name}: the train step through the kernels disagrees with the plain path")
+    del params, p32, gk32, gp32, gp, gk
+    torch.cuda.empty_cache()
+
+
+def family_train(kernels, name, layers, grad_sync, per_step) -> dict:
+    """Phase 5b: one family trains FAMILY_TRAIN_STEPS steps at full width
+    (its first ``layers`` layers, or all) on one fixed batch; the loss must
+    fall, and every kernel must launch ``per_step[kernel]`` times each step.
+    Every kernel's count is set to 0 just before the steps and read just
+    after.  Returns the launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import OptHParams
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    arch = get_config(name)
+    if layers is not None:
+        arch = arch.variant(n_layers=layers)
+    tcfg = TrainConfig(microbatches=1, remat="none", grad_sync=grad_sync)
+    t0 = time.monotonic()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0), arch, tcfg)
+    step_fn = make_train_step(arch, OptHParams(lr_peak=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL), tcfg)
+    batch = train_batch(arch, 0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    print(f"{name} train: {arch.n_layers} layers, {n_params} params ({arch.dtype}), state built in {time.monotonic() - t0} s")
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, steps = [], [], []
+    for i in range(FAMILY_TRAIN_STEPS):
+        before, t0 = {k: fn.launches for k, fn in kernels.items()}, time.monotonic()
+        state, met = step_fn(state, batch)
+        losses.append(float(met["loss"]))  # waits for the step
+        walls.append(time.monotonic() - t0)
+        steps.append({k: fn.launches - before[k] for k, fn in kernels.items()})
+        print(f"{name} train step {i}: loss={losses[-1]} aux={float(met['aux'])} grad_norm={float(met['grad_norm'])} "
+              f"wall={walls[-1]} s tokens/s={TRAIN_B * TRAIN_S / walls[-1]} "
+              + " ".join(f"{k}.launches={n}" for k, n in steps[-1].items()))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(walls[1:])[len(walls[1:]) // 2]
+    print(f"{name} train: {FAMILY_TRAIN_STEPS} steps B={TRAIN_B} S={TRAIN_S} {arch.n_layers} layers {grad_sync} remat=none: "
+          f"loss {losses[0]} -> {losses[-1]}; median step (after the first) {med} s, {TRAIN_B * TRAIN_S / med} tokens/s; "
+          f"first step {walls[0]} s; peak memory {peak / 2**30} GiB")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"{name}: the loss did not fall over {FAMILY_TRAIN_STEPS} steps on a fixed batch: {losses}")
+    if any(n != per_step for n in steps):
+        fail(f"{name}: launches a step {steps}, want {per_step}")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
 # The served models, in order; the launches each kernel must make per
 # prefill and per decode step on its path: one flash attention per
 # attention layer in a prefill (zamba2's shared block runs at layers 0, 6,
@@ -934,6 +1074,33 @@ PATHS = [
     ("zamba2-1.2b", dict(NO_LAUNCH, flash_attention=7, ssd_chunk_kernel=38), NO_LAUNCH, 8e-2, None),
     ("deepseek-moe-16b", dict(NO_LAUNCH, flash_attention=28, grouped_matmul=84), dict(NO_LAUNCH, grouped_matmul=84),
      3e-2, DEEPSEEK_F32_LAYERS),
+]
+
+# Phase 5b, the other families' trains, each at full width, bf16, B=4,
+# S=1024, FAMILY_TRAIN_STEPS steps on one fixed batch from seed 0: (model,
+# layers (None: all), grad sync, the launches each kernel must make a step,
+# the cap of the gate's bf16 distance from f32).  A step launches the SSD
+# kernel once an SSM layer (38 for zamba2), flash once an attention layer
+# (zamba2's shared block at layers 0, 6, ..., 36: 7) and the grouped matmul
+# three times a MoE layer, all in the forward (the backwards are PyTorch
+# ops).  deepseek-moe-16b is cut to 4 of its 28 layers: 2.77 B parameters,
+# whose bf16 weights and gradients and f32 AdamW moments take ~33 GB before
+# activations; an EF tree and the f32 compressed gradients would add ~22
+# GB, so its grad sync stays the default.  The gate runs each model's first
+# TRAIN_GATE_LAYERS layers (zamba2's shared block fires at layer 0): the
+# f32 kernel run against the f32 plain run within FAMILY_F32_TOL of max
+# |grad| and of the loss (the SSD and grouped-matmul contracts' own 1e-4),
+# and the bf16 runs against the f32 plain run, the kernel run no farther
+# than the plain run by more than F32_MARGIN and under the model's cap:
+# about twice the plain run's distance as read on an H100 (PERF.md, PR 17
+# run A), 0.287% of max |grad| for mamba2, 0.513% for zamba2 and 1.09%
+# for deepseek (the kernel runs read 0.340%, 0.518% and 0.955%).
+FAMILY_TRAIN_STEPS = 8
+FAMILY_F32_TOL = 1e-4
+FAMILY_TRAINS = [
+    ("mamba2-130m", None, "int8_ef", dict(NO_LAUNCH, ssd_chunk_kernel=24), 6e-3),
+    ("zamba2-1.2b", None, "int8_ef", dict(NO_LAUNCH, ssd_chunk_kernel=38, flash_attention=7), 1.0e-2),
+    ("deepseek-moe-16b", 4, "auto", dict(NO_LAUNCH, flash_attention=4, grouped_matmul=12), 2.2e-2),
 ]
 
 
@@ -957,6 +1124,8 @@ def main() -> int:
     from repro_torch.kernels.moe_gmm import grouped_matmul, grouped_matmul_plain
     from repro_torch.kernels.ssd_scan import ssd_chunk_kernel, ssd_chunk_plain
     from repro_torch.models import init_params
+    from repro_torch.models.moe import GroupedMatmulFn
+    from repro_torch.models.ssm import SSDChunkFn
     from repro_torch.tree import leaves
 
     # full-f32 products for the f32 comparisons, stated rather than assumed
@@ -1009,12 +1178,17 @@ def main() -> int:
         fail(f"{TRAIN_ARCH} train path: launches {train_launches}, want {want} "
              f"({TRAIN_STEPS} steps and 2 ranks' gradients of one flash launch a layer; one pack a rank)")
     by_path[f"{TRAIN_ARCH} train"] = train_launches
-    print(f"grouped_matmul copies of a non-contiguous operand on the main paths: {grouped_matmul.copies}")
-    if grouped_matmul.copies:
-        fail(f"the main paths handed the grouped matmul {grouped_matmul.copies} operands to copy contiguous")
     gp_ms = grad_pack_full(grads)
     del grads
     torch.cuda.empty_cache()
+
+    # 5b. the other families' trains: the gate, then the steps -----------------
+    for name, layers, grad_sync, per_step, f32_cap in FAMILY_TRAINS:
+        family_train_gate(ops, name, f32_cap)
+        by_path[f"{name} train"] = family_train(kernels, name, layers, grad_sync, per_step)
+    print(f"grouped_matmul copies of a non-contiguous operand on the main paths: {grouped_matmul.copies}")
+    if grouped_matmul.copies:
+        fail(f"the main paths handed the grouped matmul {grouped_matmul.copies} operands to copy contiguous")
 
     # 6. times at the main paths' shapes -------------------------------------
     flash_ms = {SLICE_CASE: time_attention(flash_attention, attention_plain, SLICE_CASE, gen)}
@@ -1026,11 +1200,15 @@ def main() -> int:
         t_lib = cuda_ms(ssd_yardstick(a, x, b, c))
         t_kernel2 = cuda_ms(lambda: ssd_chunk_kernel(a, x, b, c))
         d_kernel = device_ms(lambda: ssd_chunk_kernel(a, x, b, c))
+        with torch.inference_mode():  # the host cost of the serving route: the wrapper, and SSDChunkFn around it
+            h_kernel, h_fn = host_us(lambda: ssd_chunk_kernel(a, x, b, c)), host_us(lambda: SSDChunkFn.apply(a, x, b, c))
         sbound, sbound_by = ssd_bound_ms(case)
-        ssd_ms[case] = (t_kernel, t_plain, t_lib, sbound, sbound_by, d_kernel, ssd_chunk_kernel.heads_per_block)
+        ssd_ms[case] = (t_kernel, t_plain, t_lib, sbound, sbound_by, d_kernel, ssd_chunk_kernel.heads_per_block,
+                        h_kernel, h_fn)
         print(f"ssd_chunk_kernel {case}: kernel={t_kernel} ms (again {t_kernel2} ms) device={d_kernel} ms "
               f"({sbound / d_kernel} of the bound, {ssd_chunk_kernel.heads_per_block} heads a block) "
-              f"plain={t_plain} ms einsum_chain (model plain branch)={t_lib} ms bound={sbound} ms ({sbound_by})")
+              f"plain={t_plain} ms einsum_chain (model plain branch)={t_lib} ms bound={sbound} ms ({sbound_by}); "
+              f"host a call under inference_mode: wrapper {h_kernel} us, SSDChunkFn {h_fn} us")
 
     # deepseek's attention (D=128) at S=1024, then the train step's
     flash_ms[DEEPSEEK_CASES[0]] = time_attention(flash_attention, attention_plain, DEEPSEEK_CASES[0], gen_moe)
@@ -1043,14 +1221,17 @@ def main() -> int:
         t_lib = cuda_ms(lambda: torch.bmm(x, w))
         t_kernel2 = cuda_ms(lambda: grouped_matmul(x, w))
         d_kernel, d_lib = device_ms(lambda: grouped_matmul(x, w)), device_ms(lambda: torch.bmm(x, w))
+        with torch.inference_mode():  # the wrapper, and GroupedMatmulFn around it (84 a deepseek decode step)
+            h_kernel, h_fn = host_us(lambda: grouped_matmul(x, w)), host_us(lambda: GroupedMatmulFn.apply(x, w))
         gbound, gbound_by = gmm_bound_ms(case)
-        gmm_ms[case] = (t_kernel, t_plain, t_lib, gbound, gbound_by, d_kernel, d_lib)
+        gmm_ms[case] = (t_kernel, t_plain, t_lib, gbound, gbound_by, d_kernel, d_lib, h_kernel, h_fn)
         print(f"grouped_matmul {case}: kernel={t_kernel} ms (again {t_kernel2} ms) device={d_kernel} ms "
-              f"plain={t_plain} ms torch.bmm={t_lib} ms (device {d_lib} ms) bound={gbound} ms ({gbound_by})")
+              f"plain={t_plain} ms torch.bmm={t_lib} ms (device {d_lib} ms) bound={gbound} ms ({gbound_by}); "
+              f"host a call under inference_mode: wrapper {h_kernel} us, GroupedMatmulFn {h_fn} us")
 
     # 7. the record ---------------------------------------------------------------
-    g_kernel, g_plain, g_lib, gbound, gbound_by, g_device, g_lib_device = gmm_ms[GMM_PREFILL_UP]
-    t_kernel, t_plain, t_lib, sbound, sbound_by, t_device, _ = ssd_ms[SSD_MAMBA2]
+    g_kernel, g_plain, g_lib, gbound, gbound_by, g_device, g_lib_device = gmm_ms[GMM_PREFILL_UP][:7]
+    t_kernel, t_plain, t_lib, sbound, sbound_by, t_device = ssd_ms[SSD_MAMBA2][:6]
     fl = flash_ms[SLICE_CASE]
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
@@ -1084,7 +1265,8 @@ def main() -> int:
         "library_ms": t_lib,
         "device_ms": t_device,
         "at_shapes": {f"B={c[0]} H={c[1]} G={c[2]} nc={c[3]} Q={c[4]} P={c[5]} N={c[6]}": dict(zip(
-            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms", "heads_per_block"), ssd_ms[c]))
+            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms", "heads_per_block", "host_us",
+             "fn_host_us"), ssd_ms[c]))
             for c in ssd_ms},
         "check": "pass",
     }, {
@@ -1103,7 +1285,8 @@ def main() -> int:
         "device_ms": g_device,
         "library_device_ms": g_lib_device,
         "at_shapes": {f"E={c[0]} C={c[1]} D={c[2]} F={c[3]}": dict(zip(
-            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms", "library_device_ms"), gmm_ms[c]))
+            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms", "library_device_ms", "host_us",
+             "fn_host_us"), gmm_ms[c]))
             for c in gmm_ms},
         "check": "pass",
     }, {

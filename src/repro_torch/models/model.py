@@ -4,8 +4,8 @@ Port of the dense, MoE (deepseek-moe), SSM (mamba2) and hybrid (zamba2)
 branches of ``repro/models/model.py``:
 
 * ``init_params(gen, cfg)``            — stacked per-layer params (leading ``L``)
-* ``forward_train(params, cfg, batch)`` → (logits, aux_loss), dense only
-* ``loss_fn(params, cfg, batch)``       → (loss, metrics), dense only
+* ``forward_train(params, cfg, batch)`` → (logits, aux_loss)
+* ``loss_fn(params, cfg, batch)``       → (loss, metrics)
 * ``init_cache(cfg, batch, context)``   — stacked decode cache
 * ``prefill(params, cfg, batch, cache)`` → (last-token logits, cache)
 * ``decode_step(params, cfg, tokens, positions, cache)`` → (logits, cache)
@@ -15,20 +15,22 @@ Parameters and caches keep the JAX pytree's keys and shapes, so
 the layers replaces ``lax.scan``; each layer reads views of the stacked
 tensors, so cache writes land in the stacked cache in place (where the JAX
 package donates it).  The hybrid's shared attention+MLP block runs after
-every ``attn_every``-th layer on its own slice ``idx // attn_every`` of
-the stacked ``shared_attn`` cache, where the reference has ``lax.cond``.
-A MoE layer's FFN is :func:`repro_torch.models.moe.moe_apply` (its aux
-loss is dropped, as the reference's serving path drops it).  Other
-families (MLA, encoder-decoder, VLM) raise ``NotImplementedError`` until
-their slice is ported (ROADMAP.md, queue A); so do chunked-local
-attention layers (``llama4-scout``).  The train forward is ported for the
-dense decoder only: on a card its attention runs the flash-attention
-kernel through :class:`~repro_torch.models.attention.FlashAttentionFn`;
-the SSM, hybrid and MoE trains raise until autograd runs through their
-kernels too.  ``remat`` maps to ``torch.utils.checkpoint`` per layer:
-``"full"`` recomputes everything, ``"dots"`` / ``"dots_no_batch"`` save
-the matmul outputs (selective checkpointing, as the reference's
-``checkpoint_dots`` policies).
+every ``attn_every``-th layer (on its own slice ``idx // attn_every`` of
+the stacked ``shared_attn`` cache when serving), where the reference has
+``lax.cond``.  A MoE layer's FFN is :func:`repro_torch.models.moe.moe_apply`;
+the train path sums its aux loss over the layers, the serving path drops
+it as the reference's does.  Other families (MLA, encoder-decoder, VLM)
+raise ``NotImplementedError`` until their slice is ported (ROADMAP.md,
+queue A); so do chunked-local attention layers (``llama4-scout``).  On a
+card the train forward runs every kernel through an ``autograd.Function``
+(:class:`~repro_torch.models.attention.FlashAttentionFn`,
+:class:`~repro_torch.models.ssm.SSDChunkFn`,
+:class:`~repro_torch.models.moe.GroupedMatmulFn`).  ``remat`` maps to
+``torch.utils.checkpoint`` per layer (the hybrid's shared block inside its
+layer, as the reference's ``jax.checkpoint(body)``): ``"full"`` recomputes
+everything, ``"dots"`` / ``"dots_no_batch"`` save the matmul outputs
+(selective checkpointing, as the reference's ``checkpoint_dots``
+policies).
 """
 from __future__ import annotations
 
@@ -153,24 +155,25 @@ def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------- train forward
-def _check_trainable(cfg: ArchConfig) -> None:
-    _check_ported(cfg)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the train forward of the {cfg.family!r} family is not ported yet; it needs "
-            "autograd through the SSD and grouped-matmul kernels (ROADMAP.md, queue A, item 3: "
-            "the SSM, hybrid and MoE trains)"
-        )
-
-
 def _mixer_train(lp: Params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Sequence mixer on a normalized input, train path (dense: GQA)."""
+    """Sequence mixer (SSD or GQA) on a normalized input, train path."""
+    if "ssm" in lp:
+        return ssm_mod.ssm_apply(lp["ssm"], h, cfg)[0]
     return attn.attention_train(lp["attn"], h, cfg, cfg.attn_kind, cfg.window)
 
 
 def _channel_train(lp: Params, h: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Channel mixer, train path: the dense FFN and a zero aux loss."""
+    """Channel mixer, train path: the MoE FFN and its aux loss, or the
+    dense FFN and a zero aux loss."""
+    if "moe" in lp:
+        return moe_mod.moe_apply(lp["moe"], h, cfg)
     return ffn_apply(lp["ffn"], h, gated=cfg.gated_ffn), torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def _shared_block_train(sp: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The hybrid's shared attention+MLP block, train path."""
+    x = x + attn.attention_train(sp["attn"], rms_norm(x, sp["ln1"], cfg.norm_eps), cfg, cfg.attn_kind, cfg.window)
+    return x + ffn_apply(sp["ffn"], rms_norm(x, sp["ln2"], cfg.norm_eps), gated=cfg.gated_ffn)
 
 
 REMATS = ("none", "full", "dots", "dots_no_batch")
@@ -198,10 +201,17 @@ def _decoder_train(params: Params, cfg: ArchConfig, x: torch.Tensor, remat: str 
     if remat not in REMATS:
         raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
 
-    def body(h: torch.Tensor, lp: Params) -> Tuple[torch.Tensor, torch.Tensor]:
+    shared = params.get("shared_block")
+
+    def body(h: torch.Tensor, lp: Params, idx: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         h = h + _mixer_train(lp, rms_norm(h, lp["ln1"], cfg.norm_eps), cfg)
-        f, a_loss = _channel_train(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)
-        return h + f, a_loss
+        a_loss = None
+        if "ln2" in lp:  # SSM layers have no channel mixer
+            f, a_loss = _channel_train(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)
+            h = h + f
+        if shared is not None and idx % cfg.attn_every == 0:
+            h = _shared_block_train(shared, h, cfg)
+        return h, a_loss
 
     ckpt_kw = None
     if remat != "none":
@@ -215,10 +225,11 @@ def _decoder_train(params: Params, cfg: ArchConfig, x: torch.Tensor, remat: str 
     for i in range(cfg.n_layers):
         lp = _index(layers, i)
         if ckpt_kw is None:
-            x, a_loss = body(x, lp)
+            x, a_loss = body(x, lp, i)
         else:
-            x, a_loss = checkpoint(body, x, lp, **ckpt_kw)
-        aux = aux + a_loss
+            x, a_loss = checkpoint(body, x, lp, i, **ckpt_kw)
+        if a_loss is not None:
+            aux = aux + a_loss
     return x, aux
 
 
@@ -226,7 +237,7 @@ def forward_train(
     params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], remat: str = "none"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: tokens (B, S).  Returns (logits (B, S, V), aux_loss)."""
-    _check_trainable(cfg)
+    _check_ported(cfg)
     x = _embed_tokens(params, batch["tokens"])
     x, aux = _decoder_train(params, cfg, x, remat=remat)
     return _logits(params, cfg, x), aux

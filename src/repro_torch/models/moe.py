@@ -9,8 +9,9 @@ per-expert capacity per batch row, and two dispatch implementations:
   O(S·E·C) memory, the small-shape oracle in tests.
 
 The three expert products run through
-:func:`repro_torch.kernels.ops.expert_ffn_matmul`, the grouped-matmul
-kernel on a CUDA tensor, where the reference lowers them through einsum.
+:func:`repro_torch.kernels.ops.expert_ffn_matmul`, where the reference
+lowers them through einsum: on a CUDA tensor the grouped-matmul kernel,
+by :class:`GroupedMatmulFn` with or without autograd.
 The queues are laid out (E, B, C, D), so the kernel sees one (E, B·C, D)
 batch and reads each expert's weights once per call, however many rows
 the batch has.  Routing and capacity stay per batch row, so the rows of a
@@ -20,7 +21,11 @@ The reference scatters and gathers at positions ``pos >= C`` for dropped
 slots, which JAX drops (scatter) and clamps (gather).  Here a dropped slot
 writes to one spare row behind the queues that nothing reads, and its
 gathered row is zeroed, so every kept (expert, row, position) has exactly
-one writer: plain assignment, no atomics, deterministic.
+one writer: plain assignment, no atomics, deterministic.  Under autograd
+the spare row's gradient is 0 (it is cut off before the experts), so a
+dropped slot's token gets none, as the reference's dropped scatter gives.
+The router's gradient flows through the gates and, into the aux loss,
+through the probabilities.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from ..configs.base import ArchConfig
 from ..kernels import ops as kops
 from .layers import Params, dense_init, ffn_apply, ffn_init
 
-__all__ = ["moe_init", "moe_apply", "expert_capacity", "DISPATCH_MODES"]
+__all__ = ["moe_init", "moe_apply", "expert_capacity", "DISPATCH_MODES", "GroupedMatmulFn"]
 
 DISPATCH_MODES = ("scatter", "einsum")
 
@@ -68,16 +73,26 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return idx[..., None] == torch.arange(n, device=idx.device)
 
 
+def _router_probs(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """(B,S,E) f32 router probabilities."""
+    return torch.softmax(torch.einsum("bsd,de->bse", x.float(), p["router"]), dim=-1)
+
+
 def _route(p: Params, x: torch.Tensor, cfg: ArchConfig):
     """Top-k routing: per-slot expert ids, in-expert positions, keep mask
     and gates — all (B, k·S) slot-major — plus the capacity and the
     load-balancing aux loss."""
-    b, s, _ = x.shape
-    e, k = cfg.n_experts, cfg.top_k
+    probs = _router_probs(p, x)
+    gate_vals, gate_idx = torch.topk(probs, cfg.top_k, dim=-1)  # (B,S,k), descending
+    return _assign(probs, gate_vals, gate_idx, cfg)
+
+
+def _assign(probs: torch.Tensor, gate_vals: torch.Tensor, gate_idx: torch.Tensor, cfg: ArchConfig):
+    """:func:`_route`'s outputs from the probabilities and the chosen
+    experts' ids (B,S,k) and probabilities."""
+    b, s, e = probs.shape
+    k = gate_idx.shape[-1]
     cap = expert_capacity(s, cfg)
-    logits = torch.einsum("bsd,de->bse", x.float(), p["router"])
-    probs = torch.softmax(logits, dim=-1)  # (B,S,E)
-    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)  # (B,S,k), descending
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     # slot-major flattening: slot 0 of every token, then slot 1, …
     e_idx = gate_idx.transpose(1, 2).reshape(b, k * s)  # (B,kS)
@@ -118,6 +133,33 @@ def _combine_gather(expert_out: torch.Tensor, rows: torch.Tensor, keep: torch.Te
     return hit.reshape(b, -1, s, d).sum(dim=1)
 
 
+class GroupedMatmulFn(torch.autograd.Function):
+    """An expert product through the grouped-matmul kernel, under autograd
+    or not.
+
+    Forward: the kernel (``kops.expert_ffn_matmul``, looked up at call
+    time), with grad mode off as every ``Function.forward`` runs.
+    Backward: not a kernel — the gradient of the kernel's plain version
+    (``grouped_matmul_plain``: dX = dY·Wᵀ and dW = Xᵀ·dY in f32, cast back),
+    recomputed from the saved x and w with PyTorch ops.  The reference has
+    no backward kernel, so the port has none either."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        return kops.expert_ffn_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        with torch.enable_grad():
+            ins = tuple(t.detach().requires_grad_() for t in ctx.saved_tensors)
+            return torch.autograd.grad(kops.grouped_matmul_plain(*ins), ins, dout)
+
+
+def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return GroupedMatmulFn.apply(x, w) if x.is_cuda else kops.expert_ffn_matmul(x, w)
+
+
 def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, dispatch_mode: str = "scatter") -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B,S,D), aux_loss f32 scalar)."""
     if dispatch_mode not in DISPATCH_MODES:
@@ -135,10 +177,10 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, dispatch_mode: str = 
         expert_in = torch.einsum("bkec,bkd->ebcd", disp, x_rep).contiguous()
     q = expert_in.view(e, b * cap, d)  # one (E, B·C, D) batch for the kernel
     if cfg.gated_ffn:
-        h = F.silu(kops.expert_ffn_matmul(q, p["w_gate"])) * kops.expert_ffn_matmul(q, p["w_up"])
+        h = F.silu(_expert_matmul(q, p["w_gate"])) * _expert_matmul(q, p["w_up"])
     else:
-        h = F.gelu(kops.expert_ffn_matmul(q, p["w_up"]), approximate="tanh")
-    expert_out = kops.expert_ffn_matmul(h, p["w_down"]).view(e, b, cap, d)
+        h = F.gelu(_expert_matmul(q, p["w_up"]), approximate="tanh")
+    expert_out = _expert_matmul(h, p["w_down"]).view(e, b, cap, d)
     if dispatch_mode == "scatter":
         out = _combine_gather(expert_out, rows, keep, gates, s)
     else:

@@ -7,8 +7,9 @@ reference has ``lax.scan``).  Decode is the O(1)-state recurrent step.
 
 The intra-chunk block (steps 1 and 2 of :func:`ssd_chunked`) is routed by
 the tensors' device: on CUDA it runs the Hopper SSD kernel
-(:func:`repro_torch.kernels.ops.ssd_chunk`) with the layout and casts of
-the reference's Pallas branch; on the CPU it takes the reference's plain
+(:func:`repro_torch.kernels.ops.ssd_chunk`) through :class:`SSDChunkFn`,
+with or without autograd, in the layout and with the casts of the
+reference's Pallas branch; on the CPU it takes the reference's plain
 einsum branch.  The f32 leaves of a bf16 model (``A_log``, ``D``,
 ``dt_bias``) stay f32, and every dtype cast sits where the reference has
 it.  Where the JAX package donates the decode state, these functions write
@@ -26,7 +27,7 @@ from ..configs.base import ArchConfig
 from ..kernels import ops as kops
 from .layers import Params, dense_init, rms_norm
 
-__all__ = ["ssm_init", "ssm_apply", "init_ssm_cache", "ssm_decode", "ssd_chunked"]
+__all__ = ["ssm_init", "ssm_apply", "init_ssm_cache", "ssm_decode", "ssd_chunked", "SSDChunkFn"]
 
 
 def _dims(cfg: ArchConfig) -> Tuple[int, int, int, int, int]:
@@ -65,11 +66,36 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
     return diff.masked_fill(~mask, -math.inf)
 
 
+class SSDChunkFn(torch.autograd.Function):
+    """The SSD intra-chunk block through the kernel, under autograd or not.
+
+    Forward: the kernel (``kops.ssd_chunk``, looked up at call time), with
+    grad mode off as every ``Function.forward`` runs; it returns (y_diag,
+    f32 chunk states).  Backward: not a kernel — the gradient of the
+    kernel's plain version (``ssd_chunk_plain``), recomputed from the saved
+    a_dt, x, b and c with PyTorch ops.  b and c are per group: autograd
+    through the plain version's ``repeat_interleave`` sums their gradients
+    over the heads of a group.  The reference has no backward kernel (no
+    ``custom_vjp`` in the JAX package), so the port has none either."""
+
+    @staticmethod
+    def forward(ctx, a_dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+        ctx.save_for_backward(a_dt, x, b, c)
+        return kops.ssd_chunk(a_dt, x, b, c)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor, dstates: torch.Tensor):
+        with torch.enable_grad():
+            ins = tuple(t.detach().requires_grad_() for t in ctx.saved_tensors)
+            outs = kops.ssd_chunk_plain(*ins)
+            return torch.autograd.grad(outs, ins, (dy, dstates))
+
+
 def _chunk_blocks_kernel(xc, ac, b, c, bsz, nc, chunk, g, n):
     """Steps 1 and 2 through the kernel, in the reference's Pallas-branch
     layout: (B,H,nc,Q[,·]) views in, y_diag (B,nc,Q,H,P) and the f32 chunk
     states cast to x's dtype (B,nc,H,P,N) out."""
-    yk, sk = kops.ssd_chunk(
+    yk, sk = SSDChunkFn.apply(
         ac.permute(0, 3, 1, 2),
         xc.permute(0, 3, 1, 2, 4),
         b.reshape(bsz, nc, chunk, g, n).permute(0, 3, 1, 2, 4),

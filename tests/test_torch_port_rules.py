@@ -18,9 +18,13 @@
   so an edited header rebuilds every kernel.
 * A kernel wrapper refuses inputs that require grad under grad mode (its
   output would be silently detached); the train path goes through the
-  flash-attention kernel by ``FlashAttentionFn``, whose gradients equal
-  the plain path's (``gpu``-marked)."""
+  kernels by ``autograd.Function``s (``FlashAttentionFn``, ``SSDChunkFn``,
+  ``GroupedMatmulFn``), whose input gradients equal autograd through the
+  kernels' plain versions bit for bit (on CPU tensors here; on the card,
+  ``gpu``-marked, with the model's gradients against the plain path's and
+  the launches each Function makes)."""
 import ast
+import math
 from pathlib import Path
 
 import numpy as np
@@ -65,6 +69,8 @@ def test_port_files_exist():
                 "src/repro_torch/train/grad_sync.py", "src/repro_torch/train/step.py",
                 "src/repro_torch/train/trainer.py", "src/repro_torch/launch/train.py", "chip_smoke.py"):
         assert rel in names
+    for test in ("test_torch_train.py", "test_torch_train_families.py"):  # the trains' CPU parity with JAX
+        assert (REPO / "tests" / test).is_file()
     for cu in ("flash_attention", "ssd_scan", "moe_gmm", "grad_pack"):
         assert (REPO / "src" / "repro_torch" / "kernels" / "csrc" / f"{cu}.cu").is_file()
 
@@ -520,3 +526,196 @@ def test_cuda_flash_function_grads_match_the_plain_path(dtype, monkeypatch):
     assert abs(lk.item() - lp.item()) <= tol * max(1.0, abs(lp.item()))
     for a, b in zip(leaves(gk), leaves(gp)):
         assert (a.float() - b.float()).abs().max().item() <= tol * gmax
+
+
+def _ssd_fn_inputs(bsz, h, g, nc, q, p, n, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = -torch.randn((bsz, h, nc, q), generator=gen, device=device).abs() * 0.1
+    x = torch.randn((bsz, h, nc, q, p), generator=gen, device=device).to(dtype)
+    b = (torch.randn((bsz, g, nc, q, n), generator=gen, device=device) * 0.3).to(dtype)
+    c = (torch.randn((bsz, g, nc, q, n), generator=gen, device=device) * 0.3).to(dtype)
+    dy = torch.randn((bsz, h, nc, q, p), generator=gen, device=device).to(dtype)
+    dst = torch.randn((bsz, h, nc, p, n), generator=gen, device=device)
+    return (a, x, b, c), (dy, dst)
+
+
+def _grads_through(fn, ins, douts):
+    ins = [t.clone().requires_grad_() for t in ins]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, douts)
+    return outs, [t.grad for t in ins]
+
+
+@pytest.mark.parametrize("case", [(2, 4, 1, 3, 8, 16, 16), (1, 6, 2, 2, 16, 8, 8)], ids=["G1", "G2"])
+def test_ssd_function_grads_equal_the_plain_path_on_the_cpu(case):
+    """On CPU tensors ``SSDChunkFn`` (forward: the wrapper, which takes the
+    plain version there) gives the outputs and input gradients of autograd
+    through ``ssd_chunk_plain``, bit for bit; db and dc are summed over the
+    heads of each group.  Under ``inference_mode`` (serving) it runs with no
+    graph."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_plain
+    from repro_torch.models.ssm import SSDChunkFn
+
+    ins, douts = _ssd_fn_inputs(*case, torch.float32, "cpu", sum(case))
+    outs, grads = _grads_through(SSDChunkFn.apply, ins, douts)
+    ref_outs, ref_grads = _grads_through(ssd_chunk_plain, ins, douts)
+    for a, b in zip(outs + tuple(grads), ref_outs + tuple(ref_grads)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    bsz, h, g = case[:3]
+    assert grads[2].shape == (bsz, g) + case[3:5] + (case[6],)  # db per group, not per head
+    # the group sum: db equals the per-head gradients (b repeated to H groups) summed
+    a, x, b, c = ins
+    rep = h // g
+    _, per_head = _grads_through(ssd_chunk_plain, (a, x, b.repeat_interleave(rep, 1), c.repeat_interleave(rep, 1)), douts)
+    for got, heads in ((grads[2], per_head[2]), (grads[3], per_head[3])):
+        summed = heads.reshape((bsz, g, rep) + heads.shape[2:]).sum(2)
+        assert torch.allclose(got, summed, rtol=1e-5, atol=1e-6)
+    with torch.inference_mode():
+        y, st = SSDChunkFn.apply(*ins)
+    assert torch.equal(y, outs[0]) and torch.equal(st, outs[1]) and y.grad_fn is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_function_grads_equal_the_plain_path_on_the_cpu(dtype):
+    """On CPU tensors ``GroupedMatmulFn`` gives the output and the input
+    gradients (dX = dY·Wᵀ, dW = Xᵀ·dY, in f32, cast back) of autograd
+    through ``grouped_matmul_plain``, bit for bit."""
+    from repro_torch.kernels.moe_gmm import grouped_matmul_plain
+    from repro_torch.models.moe import GroupedMatmulFn
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn((3, 10, 24), generator=gen).to(dtype)
+    w = (torch.randn((3, 24, 12), generator=gen) * 0.2).to(dtype)
+    dy = torch.randn((3, 10, 12), generator=gen).to(dtype)
+    outs, grads = _grads_through(GroupedMatmulFn.apply, (x, w), (dy,))
+    ref_outs, ref_grads = _grads_through(grouped_matmul_plain, (x, w), (dy,))
+    for a, b in zip(outs + tuple(grads), ref_outs + tuple(ref_grads)):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_function_grads_match_the_plain_path(dtype):
+    """``SSDChunkFn`` on the card: the forward is the kernel (one launch),
+    within its own tolerance of the plain version (1e-4 at f32; at bf16 2
+    bf16 ulps of max |y| and 1e-4 of max(1, max |state|)), and the input
+    gradients equal autograd through ``ssd_chunk_plain`` bit for bit (the
+    backward recomputes exactly that), db and dc summed over a group's
+    heads (G=1, H=4), at the smoke configs' and mamba2's shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.ssd_scan import ssd_chunk_kernel, ssd_chunk_plain
+    from repro_torch.models.ssm import SSDChunkFn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for case in ((2, 4, 1, 3, 8, 16, 16), (2, 24, 1, 4, 64, 64, 128)):
+        ins, douts = _ssd_fn_inputs(*case, dtype, "cuda", sum(case))
+        before = ssd_chunk_kernel.launches
+        outs, grads = _grads_through(SSDChunkFn.apply, ins, douts)
+        torch.cuda.synchronize()
+        assert ssd_chunk_kernel.launches == before + 1
+        ref_outs, ref_grads = _grads_through(ssd_chunk_plain, ins, douts)
+        (y, st), (py, ps) = outs, ref_outs
+        if dtype == torch.float32:
+            assert (y - py).abs().max().item() <= 1e-4 and (st - ps).abs().max().item() <= 1e-4
+        else:
+            assert (y.float() - py.float()).abs().max().item() <= 2.0**-7 * py.float().abs().max().item()
+            assert (st - ps).abs().max().item() <= 1e-4 * max(1.0, ps.abs().max().item())
+        for a, b in zip(grads, ref_grads):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_grouped_matmul_function_grads_match_the_plain_path(dtype):
+    """``GroupedMatmulFn`` on the card: the forward is the kernel (one
+    launch, no copy), within its own tolerance of the plain version (1e-4
+    at f32, 2 bf16 ulps of max |out| at bf16), and dX, dW equal autograd
+    through ``grouped_matmul_plain`` bit for bit, at a ragged shape and at
+    deepseek-moe-16b's gate/up shape of a B=4, S=1024 train step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.moe_gmm import grouped_matmul, grouped_matmul_plain
+    from repro_torch.models.moe import GroupedMatmulFn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for e, c, d, f in ((3, 33, 70, 45), (64, 480, 2048, 1408)):
+        x = torch.randn((e, c, d), generator=gen, device="cuda").to(dtype)
+        w = (torch.randn((e, d, f), generator=gen, device="cuda") / math.sqrt(e)).to(dtype)
+        dy = torch.randn((e, c, f), generator=gen, device="cuda").to(dtype)
+        before, copies = grouped_matmul.launches, grouped_matmul.copies
+        (out,), grads = _grads_through(GroupedMatmulFn.apply, (x, w), (dy,))
+        torch.cuda.synchronize()
+        assert grouped_matmul.launches == before + 1 and grouped_matmul.copies == copies
+        (ref,), ref_grads = _grads_through(grouped_matmul_plain, (x, w), (dy,))
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= (1e-4 if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item())
+        for a, b in zip(grads, ref_grads):
+            assert a.dtype == dtype and torch.equal(a, b)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its top level imports the standard
+    library only), for its ``plain_kernels`` and ``routes`` helpers."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b", "deepseek-moe-16b"])
+def test_cuda_family_trains_run_their_kernels(arch, dtype):
+    """Through a smoke model's loss on the card: the SSD kernel launches
+    once an SSM layer a forward, flash once an attention layer (zamba2's
+    shared block every ``attn_every``-th layer), the grouped matmul three
+    times a MoE layer, each twice under ``remat="full"`` (the recompute);
+    no operand is copied; and the loss and every gradient leaf are within
+    1e-4 (f32) or 5e-2 (bf16, as flash's test) of the largest |grad| of
+    the run with every kernel's plain version swapped in (deepseek's plain
+    run on the kernel run's expert choices, its gates and aux loss from its
+    own router: ``chip_smoke.routes(regate=True)``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import grouped_matmul
+    from repro_torch.kernels.ssd_scan import ssd_chunk_kernel
+    from repro_torch.train import init_train_state
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = SMOKES[arch].variant(dtype="float32" if dtype == torch.float32 else "bfloat16")
+    params = init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg)["params"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    attn = -(-cfg.n_layers // cfg.attn_every) if cfg.family == "hybrid" else (cfg.n_layers if ssm == 0 else 0)
+    per_forward = {"ssd": ssm, "flash": attn, "gmm": 3 * cfg.n_layers if cfg.is_moe else 0}
+    kernels = {"ssd": ssd_chunk_kernel, "flash": flash_attention, "gmm": grouped_matmul}
+    smoke = _chip_smoke()
+    copies = grouped_matmul.copies
+    for remat, times in (("none", 1), ("full", 2)):
+        before = {k: fn.launches for k, fn in kernels.items()}
+        with smoke.routes() as rk:
+            (lk, _), gk = loss_and_grads(params, cfg, batch, remat)
+        torch.cuda.synchronize()
+        got = {k: fn.launches - before[k] for k, fn in kernels.items()}
+        assert got == {k: times * n for k, n in per_forward.items()}, remat
+        if remat == "none":
+            choices, loss_k, grads_k = rk.routes, lk, gk
+    assert grouped_matmul.copies == copies
+    with smoke.plain_kernels(ops), smoke.routes(choices if cfg.is_moe else None, regate=True):
+        (lp, _), gp = loss_and_grads(params, cfg, batch, "none")
+    gmax = max(g.float().abs().max().item() for g in leaves(gp))
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    assert abs(loss_k.item() - lp.item()) <= tol * max(1.0, abs(lp.item()))
+    for a, b in zip(leaves(grads_k), leaves(gp)):
+        assert torch.isfinite(a).all() and (a.float() - b.float()).abs().max().item() <= tol * gmax

@@ -44,12 +44,13 @@ def report(title: str, prof, wall_s: float, top: int = 12) -> None:
     """Host wall time, the device kernels' summed time (one stream, so they
     do not overlap), their ratio (the device busy share), each port
     kernel's share, and the kernels that took the most device time.  Only
-    device-side events are summed: the operators that launch them carry
-    the same time again."""
+    device-side kernel events are summed: the operators that launch them
+    carry the same time again, and so do the device-side spans of
+    ``record_function`` ranges (user annotations)."""
     from torch.autograd import DeviceType
 
     rows = [(e.key, e.device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     device_s = sum(r[1] for r in rows) / 1e6
     launches = sum(r[2] for r in rows)
     print(f"== {title}: wall={wall_s * 1e3} ms device={device_s * 1e3} ms kernels={launches} "
