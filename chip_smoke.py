@@ -12,7 +12,10 @@ nothing of the JAX package.  In order, it:
    the sources in the checkout (one ``nvcc`` per source, all at once);
 2. holds every kernel against its plain PyTorch version on the card, at
    the reference's test shapes and at the shapes the serving paths give
-   it, and the SSD kernel's route through ``ssd_chunked`` at a ragged S;
+   it (the later families' too: whisper's bidirectional encoder at
+   S=1500, internvl2's and llama4's attention, llama4's chunked layers at
+   S=9216 with a chunk boundary inside, its expert products), and the SSD
+   kernel's route through ``ssd_chunked`` at a ragged S;
    the gradient-pack kernel's wire bytes and new error feedback against
    its plain version and the host reference ``pack_grads_q8``, bit for
    bit, on the reference test's cases and over 10 EF steps;
@@ -29,6 +32,19 @@ nothing of the JAX package.  In order, it:
    ``InferenceServer`` over the collective comm hand-off, with every
    kernel's launch count set to 0 just before and read just after, and
    checks each kernel's launches on that path, prefill and decode;
+3b/4b. the same for the other families, at full width: ``minicpm3-4b``
+   (MLA, all 62 layers; no kernel on its path, so every count must read
+   0), ``whisper-large-v3`` (encoder-decoder, 32 + 32 layers; its prefill
+   check and serving on 8 rows of 1500-frame stubs and 128-token prompts,
+   through ``prefill`` and ``decode_step``, since a request to the server
+   carries tokens only), ``internvl2-76b`` (VLM, its first 8 of 80 layers;
+   its prefill check with a 256-token stub prefix, served text only, and
+   one prefix prefill with 3 decode steps through the model API) and
+   ``llama4-scout-17b-a16e`` (chunked-local MoE with global layers, its
+   first 4 of 48 layers so that layer 3 is global; prefill checks at
+   S=1024 and S=9216); the f32 comparison of every model but deepseek
+   converts its weights in place, one leaf at a time, and back (bf16 ->
+   f32 -> bf16 is exact): llama4's f32 copy has no room beside them;
 5. trains ``tinyllama-1.1b``: first the train step's loss and gradients
    through the kernels against the plain path (full width, its first
    layers, f32 and bf16); then the full model in bf16 with int8 error
@@ -52,7 +68,9 @@ nothing of the JAX package.  In order, it:
 6. times each kernel, its plain version and the library yardstick for the
    same function, with CUDA events (wall a call, the wrapper's host time
    included), and the kernel and the yardstick by the profiler's device
-   time a call; flash attention at the serving, deepseek and train shapes;
+   time a call; flash attention at the serving, deepseek and train shapes
+   and at whisper's, internvl2's and llama4's; the grouped matmul at
+   deepseek's and llama4's;
    the SSD kernel at mamba2's and zamba2's, with its share of the bound
    and the heads a block takes; and the host time a call of the SSD and
    grouped-matmul wrappers and of their ``autograd.Function``s under
@@ -101,6 +119,22 @@ RAGGED_CASE = (1, 200, 32, 4, 64, True, 0, 0, "bfloat16")
 ZAMBA2_CASES = [(1, 1024, 32, 32, 64, True, 4096, 0, "bfloat16"), (1, 777, 32, 32, 64, True, 4096, 0, "bfloat16")]
 # deepseek-moe-16b: H == KV = 16 heads of 128, full causal attention
 DEEPSEEK_CASES = [(1, 1024, 16, 16, 128, True, 0, 0, "bfloat16"), (1, 777, 16, 16, 128, True, 0, 0, "bfloat16")]
+# The later families: whisper-large-v3's encoder (bidirectional, H == KV =
+# 20 heads of 64, 1500 frames: a ragged tail of keys); internvl2-76b's
+# attention over a 256-token prefix and 1024 tokens of text (64 heads, 8 kv
+# heads of 128); llama4-scout's chunked-local layers at S = 9216 (40 heads,
+# 8 kv heads of 128, chunks of 8192: the boundary inside the sequence) and
+# its global layers
+WHISPER_ENC_CASE = (1, 1500, 20, 20, 64, False, 0, 0, "bfloat16")
+INTERNVL2_CASE = (1, 1280, 64, 8, 128, True, 0, 0, "bfloat16")
+LLAMA4_CHUNK_CASE = (1, 9216, 40, 8, 128, True, 0, 8192, "bfloat16")
+LLAMA4_GLOBAL_CASE = (1, 9216, 40, 8, 128, True, 0, 0, "bfloat16")
+FAMILY_FLASH_CASES = [WHISPER_ENC_CASE, INTERNVL2_CASE, LLAMA4_CHUNK_CASE, LLAMA4_GLOBAL_CASE]
+# The plain attention takes queries this many at a time: at S = 9216 the
+# whole f32 score matrix of 40 heads would be 13.6 GB (and its softmax as
+# much again), a block of 2048 queries 3.0 GB.  Each query row is its own
+# softmax, so the blocks compute the same function.
+PLAIN_Q_BLOCK = 2048
 # 5e-5 at f32 (full-f32 products, only the summation order differs);
 # 4e-2 at bf16 (the kernel rounds p to bf16 before PV, the plain version
 # keeps f32 to the end): the reference's own tolerances
@@ -152,6 +186,12 @@ GMM_CASES = [
 GMM_PREFILL_UP = (64, 120, 2048, 1408, "bfloat16")
 GMM_PREFILL_DOWN = (64, 120, 1408, 2048, "bfloat16")
 GMM_DECODE = (64, 32, 2048, 1408, "bfloat16")
+# llama4-scout's expert products: top-1 of 16 experts, so a 1024-token
+# prefill's capacity is ceil(1024 / 16 * 1.25) = 80, through gate/up (D =
+# 5120, F = 8192) and down; a decode step of 8 slots (capacity 4 a row)
+LLAMA4_GMM_UP = (16, 80, 5120, 8192, "bfloat16")
+LLAMA4_GMM_DOWN = (16, 80, 8192, 5120, "bfloat16")
+LLAMA4_GMM_DECODE = (16, 32, 5120, 8192, "bfloat16")
 # f32: 1e-4, the reference's own.  bf16: both versions sum in f32 and round
 # to bf16 once, so an output may differ by rounding at the boundary: 2 bf16
 # ulps (2^-7) of max |out| (the reference's absolute 5e-2 means nothing at
@@ -224,18 +264,39 @@ def host_us(fn, iters: int = 200, warmup: int = 5) -> float:
     return t / iters * 1e6
 
 
-def time_attention(flash_attention, attention_plain, case, gen) -> dict:
-    """Phase 6: the kernel, its plain version and SDPA on one causal case:
-    event-timed walls and, for the kernel and SDPA, device times."""
+def sdpa_yardstick(case, q, k, v):
+    """SDPA on q, k, v (B, S, H|KV, D) with ``case``'s mask, as a call to
+    time: the inputs laid out as its (B, H, S, D) beforehand; a window or
+    chunk goes as a boolean mask, with the kv heads repeated to the query
+    heads (made beforehand too)."""
     import torch
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    _, s, h, kvh, _, causal, window, chunk, _ = case
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if not (window or chunk):
+        return lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=h != kvh)
+    pos = torch.arange(s, device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    if chunk:
+        mask &= pos[None, :] // chunk == pos[:, None] // chunk
+    kt, vt = (t.repeat_interleave(h // kvh, dim=1) for t in (kt, vt))
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask)
+
+
+def time_attention(flash_attention, attention_plain, case, gen) -> dict:
+    """Phase 6: the kernel, its plain version and SDPA on one case, its mask
+    included: event-timed walls and, for the kernel and SDPA, device
+    times."""
+    _, s, _, _, _, causal, window, chunk, _ = case
+    kw = dict(causal=causal, window=window, chunk=chunk)
     q, k, v = attention_inputs(case, gen)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # SDPA's (B,H,S,D)
-    gqa = case[2] != case[3]
-    kernel = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
-    lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=gqa)  # noqa: E731
-    t = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(lambda: attention_plain(q, k, v, causal=True)),
+    kernel = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
+    lib = sdpa_yardstick(case, q, k, v)
+    plain_iters = 50 if s <= PLAIN_Q_BLOCK else 5
+    t = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(lambda: attention_plain(q, k, v, **kw), iters=plain_iters, warmup=1),
          "library_ms": cuda_ms(lib), "again_ms": cuda_ms(kernel),
          "device_ms": device_ms(kernel), "library_device_ms": device_ms(lib)}
     t["bound_ms"], t["bound_by"] = attention_bound_ms(case)
@@ -254,6 +315,33 @@ def attention_inputs(case, gen):
     k = torch.randn((b, s, kv, d), generator=gen, device="cuda").to(dt)
     v = torch.randn((b, s, kv, d), generator=gen, device="cuda").to(dt)
     return q, k, v
+
+
+def attention_plain_blocked(q, k, v, causal=True, window=0, chunk=0):
+    """``attention_plain`` a block of PLAIN_Q_BLOCK queries at a time (a
+    causal block against the keys up to its last query): the same function
+    in a bounded working set.  Up to PLAIN_Q_BLOCK queries it is one call
+    of ``attention_plain``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import attention_plain
+
+    s = q.shape[1]
+    if s <= PLAIN_Q_BLOCK:
+        return attention_plain(q, k, v, causal=causal, window=window, chunk=chunk)
+    outs = []
+    for i in range(0, s, PLAIN_Q_BLOCK):
+        end = min(s, i + PLAIN_Q_BLOCK)
+        kend = end if causal else k.shape[1]
+        outs.append(attention_plain(q[:, i:end], k[:, :kend], v[:, :kend], causal=causal, window=window,
+                                    chunk=chunk, q_start=i))
+    return torch.cat(outs, dim=1)
+
+
+def mask_label(case) -> str:
+    """'' for a causal case with no window or chunk, else its mask."""
+    _, _, _, _, _, causal, window, chunk, _ = case
+    return "".join([" bidir" if not causal else "", f" window={window}" if window else "", f" chunk={chunk}" if chunk else ""])
 
 
 def check_attention(flash_attention, attention_plain, gen, cases) -> dict:
@@ -276,13 +364,30 @@ def check_attention(flash_attention, attention_plain, gen, cases) -> dict:
     return errs
 
 
+def visible_pairs(s: int, causal: bool, window: int, chunk: int) -> int:
+    """The (query, key) pairs the mask lets through: query i sees keys from
+    max(0, i - window + 1, its chunk's start) (only where the flags are set)
+    to i, or every key when not causal."""
+    if not causal:
+        return s * s
+    total = 0
+    for i in range(s):
+        lo = 0
+        if window:
+            lo = max(lo, i - window + 1)
+        if chunk:
+            lo = max(lo, i // chunk * chunk)
+        total += i - lo + 1
+    return total
+
+
 def attention_bound_ms(case) -> tuple:
     """Least time for the work this case needs: q, k, v, out moved once;
     2 products of 2 operations per visible (query, key) pair per head dim."""
     b, s, h, kv, d, causal, window, chunk, dtype = case
     item = 2 if dtype == "bfloat16" else 4
     nbytes = item * b * s * d * (2 * h + 2 * kv)
-    pairs = s * (s + 1) // 2 if causal and not window and not chunk else s * s
+    pairs = visible_pairs(s, causal, window, chunk)
     flops = 4 * b * h * d * pairs
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -341,12 +446,12 @@ def gmm_inputs(case, gen):
     return x, w
 
 
-def check_gmm(grouped_matmul, grouped_matmul_plain, gen) -> dict:
+def check_gmm(grouped_matmul, grouped_matmul_plain, gen, cases) -> dict:
     """Phase 2: the grouped matmul vs its plain version; returns {case: max_abs_err}."""
     import torch
 
     errs = {}
-    for case in GMM_CASES + [GMM_PREFILL_UP, GMM_PREFILL_DOWN, GMM_DECODE]:
+    for case in cases:
         dtype = case[-1]
         x, w = gmm_inputs(case, gen)
         out = grouped_matmul(x, w)
@@ -408,12 +513,11 @@ class plain_kernels:
         self.ops = ops
 
     def __enter__(self):
-        from repro_torch.kernels.flash_attention import attention_plain
         from repro_torch.kernels.moe_gmm import grouped_matmul_plain
         from repro_torch.kernels.ssd_scan import ssd_chunk_plain
 
         self.saved = self.ops.attention, self.ops.ssd_chunk, self.ops.expert_ffn_matmul
-        self.ops.attention = lambda q, k, v, **kw: attention_plain(q, k, v, **kw)
+        self.ops.attention = attention_plain_blocked
         self.ops.ssd_chunk = ssd_chunk_plain
         self.ops.expert_ffn_matmul = grouped_matmul_plain
         return self
@@ -508,23 +612,49 @@ def ssd_bound_ms(case) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def prefill_logits(arch, params, prompt):
+def prefill_logits(arch, params, batch):
+    """Last-position logits (B, 1, V) of a prefill of ``batch`` (tokens,
+    and a stub ``prefix`` or ``frames``) on a fresh cache of at least 2048
+    positions."""
     import torch
 
     from repro_torch.models import init_cache, prefill
 
+    b, s = batch["tokens"].shape
+    s += batch["prefix"].shape[1] if "prefix" in batch else 0
     with torch.inference_mode():
-        logits, _ = prefill(params, arch, {"tokens": prompt}, init_cache(arch, 1, 2048))
+        logits, _ = prefill(params, arch, batch, init_cache(arch, b, max(2048, s)))
     return logits
 
 
-def prefill_check(arch, params, prompt, ops, f32_cap, f32_layers=None) -> int:
+def dtypes_of(tree):
+    return {k: dtypes_of(v) if isinstance(v, dict) else v.dtype for k, v in tree.items()}
+
+
+def retype_(tree, dtypes) -> None:
+    """Each leaf of the nested dict ``tree`` replaced in place by its copy in
+    ``dtypes`` (one dtype, or a tree of them), one leaf at a time: the peak
+    is the new tree and one old leaf."""
+    for key in list(tree):
+        want = dtypes[key] if isinstance(dtypes, dict) else dtypes
+        if isinstance(tree[key], dict):
+            retype_(tree[key], want)
+        else:
+            tree[key] = tree[key].to(want)
+
+
+def prefill_check(arch, params, batch, ops, f32_cap, f32_layers=None) -> int:
     """Phase 3: full-width prefill logits through the kernels against the
     same prefill with every kernel's plain version swapped in (within
     LOGIT_REL_TOL of max |logit|), and both against the same weights in
-    f32 through the plain versions (see F32_MARGIN).  With ``f32_layers``
-    the f32 comparison runs on the model cut to its first ``f32_layers``
-    layers (params sliced from the full tree), all three prefills again.
+    f32 through the plain versions (see F32_MARGIN), the stub inputs cast
+    with them.  With ``f32_layers`` the f32 comparison runs on the model
+    cut to its first ``f32_layers`` layers (params sliced from the full
+    tree, copied to f32), all three prefills again.  Without, the f32
+    weights replace the bf16 ones leaf by leaf and go back after the f32
+    prefill (bf16 -> f32 -> bf16 is exact), so that a model whose f32 copy
+    has no room beside its bf16 weights (llama4-scout's 43.5 GB beside
+    21.8) is compared at the depth it is served.
 
     A MoE model's routing amplifies a last-bit difference: one flipped
     expert choice moves the queue positions behind it and so which slots
@@ -533,29 +663,33 @@ def prefill_check(arch, params, prompt, ops, f32_cap, f32_layers=None) -> int:
     gated comparisons then replay one run's routing into the others (the
     kernel run's into the plain run, the f32 run's into both bf16 runs),
     so that they differ only by the arithmetic the kernels replace.
-    Returns the full kernel prefill's argmax (the first token the server
-    must emit)."""
+    Returns the full kernel prefill's argmax of row 0 (the first token the
+    server must emit)."""
     import torch
 
     from repro_torch.tree import tree_map
 
+    tokens = batch["tokens"]
     with routes() as rk:
-        logits_k = prefill_logits(arch, params, prompt)
-    if logits_k.shape != (1, 1, arch.vocab_size) or not torch.isfinite(logits_k).all():
+        logits_k = prefill_logits(arch, params, batch)
+    if logits_k.shape != (tokens.shape[0], 1, arch.vocab_size) or not torch.isfinite(logits_k).all():
         fail(f"{arch.name}: prefill logits malformed: shape {tuple(logits_k.shape)}")
     first_tok = int(torch.argmax(logits_k[0, -1]))
     moe = bool(rk.routes)
     if moe:
         with plain_kernels(ops), routes() as rp:
-            logits_p = prefill_logits(arch, params, prompt)
+            logits_p = prefill_logits(arch, params, batch)
         free = (logits_k.float() - logits_p.float()).abs().max().item() / logits_p.float().abs().max().item()
-        print(f"{arch.name}: prefill logits (S={prompt.shape[1]}) kernels vs plain, routing free: rel={free}; "
+        print(f"{arch.name}: prefill logits (S={tokens.shape[1]}) kernels vs plain, routing free: rel={free}; "
               + routing_flips(rk.routes, rp.routes))
     with plain_kernels(ops), routes(replay=rk.routes if moe else None):
-        logits_p = prefill_logits(arch, params, prompt)
+        logits_p = prefill_logits(arch, params, batch)
     scale = logits_p.float().abs().max().item()
     lerr = (logits_k.float() - logits_p.float()).abs().max().item()
-    print(f"{arch.name}: prefill logits (S={prompt.shape[1]}, {arch.n_layers} layers) kernels vs plain"
+    print(f"{arch.name}: prefill logits (B={tokens.shape[0]} S={tokens.shape[1]}"
+          f"{' after a ' + str(batch['prefix'].shape[1]) + '-token prefix' if 'prefix' in batch else ''}"
+          f"{' over ' + str(batch['frames'].shape[1]) + ' frames' if 'frames' in batch else ''}, "
+          f"{arch.n_layers} layers) kernels vs plain"
           f"{', routing of the kernel run' if moe else ''}: max_abs_err={lerr} max|logit|={scale} "
           f"rel={lerr / scale} tol={LOGIT_REL_TOL}")
     if not lerr <= LOGIT_REL_TOL * scale:
@@ -563,13 +697,23 @@ def prefill_check(arch, params, prompt, ops, f32_cap, f32_layers=None) -> int:
     if f32_layers is not None:
         arch = arch.variant(n_layers=f32_layers)
         params = dict(params, layers=tree_map(lambda t: t[:f32_layers], params["layers"]))
+    batch32 = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
+    if f32_layers is None:
+        dtypes = dtypes_of(params)
+        retype_(params, torch.float32)
+        p32 = params
+    else:
+        p32 = tree_map(lambda t: t.float(), params)
     with plain_kernels(ops), routes() as r32:
-        logits_32 = prefill_logits(arch.variant(dtype="float32"), tree_map(lambda t: t.float(), params), prompt)
+        logits_32 = prefill_logits(arch.variant(dtype="float32"), p32, batch32)
+    del p32
+    if f32_layers is None:
+        retype_(params, dtypes)
     if moe or f32_layers is not None:  # both bf16 runs again, on the f32 run's routing
         with routes(replay=r32.routes if moe else None):
-            logits_k = prefill_logits(arch, params, prompt)
+            logits_k = prefill_logits(arch, params, batch)
         with plain_kernels(ops), routes(replay=r32.routes if moe else None):
-            logits_p = prefill_logits(arch, params, prompt)
+            logits_p = prefill_logits(arch, params, batch)
     torch.cuda.empty_cache()
     scale32 = logits_32.abs().max().item()
     rel_k = (logits_k.float() - logits_32).abs().max().item() / scale32
@@ -629,6 +773,7 @@ def serve_path(arch, params, prompt, first_tok, kernels, per_prefill, per_step) 
         f"{arch.name} serve: requests={len(done)}/{len(prompts)} engine_steps={server.steps} tokens={server.tokens_out} "
         f"throughput={server.tokens_out / dt} tok/s ttft_p50={ttft[len(ttft) // 2] * 1e3 if ttft else float('nan')} ms "
         f"wall={dt} s prefill={server.core.prefill_seconds} s decode={server.core.decode_seconds} s "
+        f"decode_step={server.core.decode_seconds / max(server.core.steps, 1) * 1e3} ms "
         + " ".join(f"{name}.launches={n}" for name, n in launches.items()) + " transport=collective"
     )
     if len(done) != len(prompts):
@@ -647,6 +792,137 @@ def serve_path(arch, params, prompt, first_tok, kernels, per_prefill, per_step) 
             fail(f"{arch.name}: {name} launched {launches[name]} times, want {n} on this path "
                  f"({per_prefill[name]} x {prefills} prefills + {per_step[name]} x {steps} decode steps)")
     return launches
+
+
+def encdec_path(arch, params, batch, first_tok, kernels, per_prefill, per_step) -> dict:
+    """Phase 4b, the encoder-decoder: the server cannot take it (a request
+    carries tokens only, as in the reference), so one batched ``prefill``
+    of ``batch`` (rows of stub frames and prompts) then ENCDEC_STEPS greedy
+    ``decode_step``s over every row; every kernel's count is set to 0 just
+    before and read just after.  A kernel must launch ``per_prefill[name]``
+    times in the prefill and ``per_step[name]`` times a decode step, and
+    row 0's first token must be the phase-3 argmax.  Returns the launches."""
+    import torch
+
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    b, s = batch["tokens"].shape
+    cache = init_cache(arch, b, 2048)
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        logits, cache = prefill(params, arch, batch, cache)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        out = [tok.cpu()]
+        t_prefill = time.monotonic() - t0
+        after_prefill = {name: fn.launches for name, fn in kernels.items()}
+        for i in range(ENCDEC_STEPS):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+            logits, cache = decode_step(params, arch, tok[:, None], pos, cache)
+            tok = torch.argmax(logits[:, 0], dim=-1)
+            out.append(tok.cpu())
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    toks = torch.stack(out, dim=1)
+    n = toks.numel()
+    print(f"{arch.name} prefill+decode ({b} rows, {batch['frames'].shape[1]} frames, {s}-token prompts, "
+          f"{ENCDEC_STEPS} decode steps): tokens={n} throughput={n / dt} tok/s wall={dt} s prefill={t_prefill} s "
+          f"decode={dt - t_prefill} s decode_step={(dt - t_prefill) / ENCDEC_STEPS * 1e3} ms "
+          + " ".join(f"{name}.launches={k}" for name, k in launches.items()) + " (model API)")
+    if not bool(((toks >= 0) & (toks < arch.vocab_size)).all()):
+        fail(f"{arch.name}: out-of-vocab tokens")
+    if int(toks[0, 0]) != first_tok:
+        fail(f"{arch.name}: row 0's first token {int(toks[0, 0])} != the phase-3 prefill's argmax {first_tok}")
+    for name in kernels:
+        got = (after_prefill[name], launches[name] - after_prefill[name])
+        want = (per_prefill[name], per_step[name] * ENCDEC_STEPS)
+        if got != want:
+            fail(f"{arch.name}: {name} launched {got[0]} times in the prefill and {got[1]} in {ENCDEC_STEPS} "
+                 f"decode steps, want {want}")
+    return launches
+
+
+def prefix_path(arch, params, batch, first_tok, kernels, per_prefill, per_step) -> dict:
+    """Phase 4b, the VLM's prefix: the server serves text only (as the
+    reference's), so one prefill of ``batch`` (a stub prefix, then text)
+    and PREFIX_STEPS greedy decode steps at positions that count the
+    prefix, through the model API; every kernel's count is set to 0 just
+    before and read just after, and checked as in ``encdec_path``."""
+    import torch
+
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    s = batch["prefix"].shape[1] + batch["tokens"].shape[1]
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        logits, cache = prefill(params, arch, batch, init_cache(arch, 1, 2048))
+        after_prefill = {name: fn.launches for name, fn in kernels.items()}
+        toks = [int(torch.argmax(logits[0, -1]))]
+        for i in range(PREFIX_STEPS):
+            pos = torch.full((1,), s + i, dtype=torch.int32, device="cuda")
+            logits, cache = decode_step(params, arch, torch.tensor([[toks[-1]]], device="cuda"), pos, cache)
+            toks.append(int(torch.argmax(logits[0, 0])))
+    dt = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"{arch.name} prefix prefill+decode ({batch['prefix'].shape[1]}-token prefix, {batch['tokens'].shape[1]} "
+          f"tokens, {PREFIX_STEPS} decode steps at positions {s}..{s + PREFIX_STEPS - 1}): tokens={toks} wall={dt} s "
+          + " ".join(f"{name}.launches={k}" for name, k in launches.items()) + " (model API)")
+    if toks[0] != first_tok or not all(0 <= t < arch.vocab_size for t in toks):
+        fail(f"{arch.name}: prefix path tokens {toks}, the first must be the phase-3 prefill's argmax {first_tok}")
+    for name in kernels:
+        got = (after_prefill[name], launches[name] - after_prefill[name])
+        if got != (per_prefill[name], per_step[name] * PREFIX_STEPS):
+            fail(f"{arch.name}: {name} launched {got} times (prefill, decode) on the prefix path")
+    return launches
+
+
+def family_path(name, layers, per_prefill, per_step, f32_cap, ops, kernels, gen) -> dict:
+    """Phases 3b and 4b for one of the later families (see FAMILY_PATHS):
+    its prefill check, then its serving path.  Returns {path: launches}."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.tree import leaves
+
+    arch = get_config(name)
+    if layers is not None:
+        arch = arch.variant(n_layers=layers)
+    t0 = time.monotonic()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), arch)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    print(f"{name}: {arch.n_layers} layers{'' if layers is None else ' (cut)'}, {n_params} params ({arch.dtype}) "
+          f"built in {time.monotonic() - t0} s")
+    stub = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+    tokens = lambda b, s: torch.randint(0, arch.vocab_size, (b, s), generator=gen, device="cuda")  # noqa: E731
+    paths = {}
+    if arch.is_encdec:
+        batch = {"tokens": tokens(ENCDEC_ROWS, ENCDEC_PROMPT), "frames": stub(ENCDEC_ROWS, arch.encoder_seq, arch.d_model)}
+        first = prefill_check(arch, params, batch, ops, f32_cap)
+        paths[name] = encdec_path(arch, params, batch, first, kernels, per_prefill, per_step)
+    elif arch.frontend == "vision":
+        batch = {"tokens": tokens(1, VLM_TEXT), "prefix": stub(1, arch.n_prefix_tokens, arch.d_model)}
+        first_prefix = prefill_check(arch, params, batch, ops, f32_cap)
+        first = int(torch.argmax(prefill_logits(arch, params, {"tokens": batch["tokens"]})[0, -1]))
+        print(f"{name}: text-only prefill (S={VLM_TEXT}) through the kernels, argmax {first}")
+        paths[name] = serve_path(arch, params, batch["tokens"], first, kernels, per_prefill, per_step)
+        paths[f"{name} prefix"] = prefix_path(arch, params, batch, first_prefix, kernels, per_prefill, per_step)
+    else:
+        prompts = [tokens(1, s) for s in FAMILY_PROMPTS.get(name, (777,))]
+        first = prefill_check(arch, params, {"tokens": prompts[0]}, ops, f32_cap)
+        for long in prompts[1:]:
+            prefill_check(arch, params, {"tokens": long}, ops, f32_cap)
+        paths[name] = serve_path(arch, params, prompts[0], first, kernels, per_prefill, per_step)
+    del params
+    torch.cuda.empty_cache()
+    return paths
 
 
 # The gradient pack on the reference's cases (tests/test_grad_pack.py): the
@@ -1076,6 +1352,37 @@ PATHS = [
      3e-2, DEEPSEEK_F32_LAYERS),
 ]
 
+# Phases 3b/4b, the later families at full width, bf16, random weights from
+# seed 0, each as (model, layers on the card (None: all), the launches each
+# kernel must make a prefill and a decode step, the cap of the kernel
+# prefill's distance from f32).  MLA has no kernel in the reference, so
+# minicpm3's counts all read 0; whisper's prefill runs flash in its 32
+# encoder layers (bidirectional) and its 32 decoder self-attention layers,
+# and its cross-attention (128 queries against 1500 frames) on plain ops;
+# internvl2 (70.6 B parameters at full depth, ~141 GB in bf16) is cut to 8
+# of its 80 layers, 8.95 B parameters; llama4-scout (107.8 B, ~216 GB) to 4
+# of its 48, 10.88 B parameters, so that layer 3 is a global one: flash once
+# a layer, the grouped matmul 3 times a MoE layer in every model call.
+# The caps are about twice the plain bf16 run's distance from f32 as read
+# on an H100 80GB HBM3 at 700 W (PERF.md, §6): 1.093% of max |logit| for minicpm3,
+# 1.279% for whisper, 1.172% for internvl2 and, on the f32 run's routing,
+# 1.015% and 0.992% for llama4 at S = 1024 and 9216 (the kernel runs read
+# 1.093%, 1.334%, 1.002%, 1.087% and 1.030%).
+FAMILY_PATHS = [
+    ("minicpm3-4b", None, NO_LAUNCH, NO_LAUNCH, 2.2e-2),
+    ("whisper-large-v3", None, dict(NO_LAUNCH, flash_attention=64), NO_LAUNCH, 2.6e-2),
+    ("internvl2-76b", 8, dict(NO_LAUNCH, flash_attention=8), NO_LAUNCH, 2.4e-2),
+    ("llama4-scout-17b-a16e", 4, dict(NO_LAUNCH, flash_attention=4, grouped_matmul=12),
+     dict(NO_LAUNCH, grouped_matmul=12), 2.0e-2),
+]
+# whisper: 8 rows of 1500-frame stubs and 128-token prompts, then 32 decode
+# steps; internvl2: a 256-token stub prefix and 768 tokens of text, then 3
+# decode steps; the others' prefill checks at 777 tokens, llama4's at S =
+# 1024 (the served prompt) and at S = 9216, past its first 8192-token chunk
+ENCDEC_ROWS, ENCDEC_PROMPT, ENCDEC_STEPS = 8, 128, 32
+VLM_TEXT, PREFIX_STEPS = 768, 3
+FAMILY_PROMPTS = {"llama4-scout-17b-a16e": (1024, 9216)}
+
 # Phase 5b, the other families' trains, each at full width, bf16, B=4,
 # S=1024, FAMILY_TRAIN_STEPS steps on one fixed batch from seed 0: (model,
 # layers (None: all), grad sync, the launches each kernel must make a step,
@@ -1151,7 +1458,12 @@ def main() -> int:
     check_ssd_chunked_ragged(ops, ssd_chunk_plain, gen)
     gen_moe = torch.Generator(device="cuda").manual_seed(13)  # leaves gen's draws for the earlier paths as they were
     check_attention(flash_attention, attention_plain, gen_moe, DEEPSEEK_CASES)
-    gmm_errs = check_gmm(grouped_matmul, grouped_matmul_plain, gen_moe)
+    gmm_errs = check_gmm(grouped_matmul, grouped_matmul_plain, gen_moe,
+                         GMM_CASES + [GMM_PREFILL_UP, GMM_PREFILL_DOWN, GMM_DECODE])
+    gen_fam = torch.Generator(device="cuda").manual_seed(29)  # the later families' own draws
+    errs.update(check_attention(flash_attention, attention_plain_blocked, gen_fam, FAMILY_FLASH_CASES))
+    gmm_errs.update(check_gmm(grouped_matmul, grouped_matmul_plain, gen_fam,
+                              [LLAMA4_GMM_UP, LLAMA4_GMM_DOWN, LLAMA4_GMM_DECODE]))
     check_grad_pack()
 
     # 3./4. each model: full-width prefill check, then serving ----------------
@@ -1165,10 +1477,14 @@ def main() -> int:
         n_params = sum(t.numel() for t in leaves(params))
         print(f"{name}: {n_params} params ({arch.dtype}) built in {time.monotonic() - t0} s")
         prompt = torch.randint(0, arch.vocab_size, (1, 777), generator=gen, device="cuda")
-        first_tok = prefill_check(arch, params, prompt, ops, f32_cap, f32_layers)
+        first_tok = prefill_check(arch, params, {"tokens": prompt}, ops, f32_cap, f32_layers)
         by_path[name] = serve_path(arch, params, prompt, first_tok, kernels, per_prefill, per_step)
         del params
         torch.cuda.empty_cache()
+
+    # 3b./4b. the later families: full-width prefill checks, then serving ------
+    for name, layers, per_prefill, per_step, f32_cap in FAMILY_PATHS:
+        by_path.update(family_path(name, layers, per_prefill, per_step, f32_cap, ops, kernels, gen_fam))
 
     # 5. training: the gate, the train path with the DP exchange, the pack ---
     train_gate(ops)
@@ -1213,9 +1529,11 @@ def main() -> int:
     # deepseek's attention (D=128) at S=1024, then the train step's
     flash_ms[DEEPSEEK_CASES[0]] = time_attention(flash_attention, attention_plain, DEEPSEEK_CASES[0], gen_moe)
     flash_ms[TRAIN_FLASH_CASE] = time_attention(flash_attention, attention_plain, TRAIN_FLASH_CASE, gen)
+    for case in (WHISPER_ENC_CASE, INTERNVL2_CASE, LLAMA4_CHUNK_CASE):  # the later families'
+        flash_ms[case] = time_attention(flash_attention, attention_plain_blocked, case, gen_fam)
     gmm_ms = {}
-    for case in (GMM_PREFILL_UP, GMM_PREFILL_DOWN, GMM_DECODE):
-        x, w = gmm_inputs(case, gen_moe)
+    for case in (GMM_PREFILL_UP, GMM_PREFILL_DOWN, GMM_DECODE, LLAMA4_GMM_UP, LLAMA4_GMM_DOWN, LLAMA4_GMM_DECODE):
+        x, w = gmm_inputs(case, gen_moe if case[0] == 64 else gen_fam)
         t_kernel = cuda_ms(lambda: grouped_matmul(x, w))
         t_plain = cuda_ms(lambda: grouped_matmul_plain(x, w))
         t_lib = cuda_ms(lambda: torch.bmm(x, w))
@@ -1248,7 +1566,7 @@ def main() -> int:
         "library_ms": fl["library_ms"],
         "device_ms": fl["device_ms"],
         "library_device_ms": fl["library_device_ms"],
-        "at_shapes": {f"B={c[0]} S={c[1]} H={c[2]} KV={c[3]} D={c[4]}": flash_ms[c] for c in flash_ms},
+        "at_shapes": {f"B={c[0]} S={c[1]} H={c[2]} KV={c[3]} D={c[4]}{mask_label(c)}": flash_ms[c] for c in flash_ms},
         "check": "pass",
     }, {
         "name": "ssd_chunk_kernel",

@@ -35,16 +35,19 @@ def attention_plain(
     causal: bool = True,
     window: int = 0,
     chunk: int = 0,
+    q_start: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch copy of ``repro.kernels.ref.attention_ref``: f32 scores
-    and softmax over the whole (masked) score matrix."""
+    and softmax over the whole (masked) score matrix.  ``q_start`` is the
+    position of q's first row (k's rows sit at 0..skv-1), so that a long
+    sequence can be taken a block of queries at a time."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     qg = q.reshape(b, sq, kvh, g, d)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
     s = s / math.sqrt(d)
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    qpos = torch.arange(q_start, q_start + sq, device=q.device)[:, None]
     kpos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:

@@ -10,6 +10,8 @@ direct path.  ``--prefill-chunk C`` turns on chunked prefill.
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
 raises.  Weights are random, from a ``torch.Generator`` seeded with 0.  The
 fleet (``--workers > 1``) and the shmem transport wait for a later slice.
+An encoder-decoder (``whisper-large-v3``) is refused: a request carries
+tokens only, as in the reference.
 """
 from __future__ import annotations
 

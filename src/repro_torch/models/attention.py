@@ -1,10 +1,12 @@
-"""GQA attention (full / sliding-window / chunked-local / bidirectional).
+"""Attention: GQA (full / sliding-window / chunked-local / bidirectional)
+and MLA.
 
-Port of the GQA half of ``repro/models/attention.py``; MLA waits for a
-later slice (ROADMAP.md, queue A).  Three entry points:
+Port of ``repro/models/attention.py``.  Three GQA entry points:
 
-* :func:`attention_train` — full-sequence attention of the train forward.
-  On a CUDA tensor it runs the Hopper flash-attention kernel inside an
+* :func:`attention_train` — full-sequence attention of the train forward,
+  the encoder (``rope=False``, ``"bidir"``) and cross-attention
+  (``kv_x``).  Self-attention on a CUDA tensor runs the Hopper
+  flash-attention kernel inside an
   ``autograd.Function`` (:class:`FlashAttentionFn`): the forward is the
   kernel, the backward the gradient of the reference's q-chunked lowering,
   recomputed from the saved q, k and v with PyTorch ops (the reference has
@@ -18,6 +20,18 @@ later slice (ROADMAP.md, queue A).  Three entry points:
 * :func:`attention_decode` — one-token step against the cache, plain
   tensor ops on both devices (the reference has no kernel for it).
 
+The kernel takes queries and keys of one length, as the reference's
+Pallas route does (``sq == skv``): cross-attention (a decoder's queries
+against the encoder's frames) takes the plain path on either device
+(:func:`_kernel_route`).
+
+MLA (``minicpm3``): :func:`mla_train`, :func:`mla_prefill` and
+:func:`mla_decode` over a latent cache (``c_kv``, the shared ``k_rope``)
+of the full context, slot == position.  The reference attends by einsum
+there with no kernel, and so does the port, on both devices: per-head
+K/V reconstructed from the latent for the prompt, the absorbed form
+(scores in latent space) for a decode step.
+
 The KV cache is the reference's uniform ring buffer: every slot carries
 its absolute position (-1 = empty), so masking is position-driven.  Where
 the JAX package donates the cache to ``jit``, these functions write into
@@ -26,7 +40,7 @@ the given cache in place and return it.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,6 +56,11 @@ __all__ = [
     "init_kv_cache",
     "attention_prefill",
     "attention_decode",
+    "mla_init",
+    "mla_train",
+    "init_mla_cache",
+    "mla_prefill",
+    "mla_decode",
 ]
 
 NEG_INF = -1e30
@@ -49,7 +68,9 @@ KINDS = ("full", "swa", "chunked", "bidir")
 
 
 # ---------------------------------------------------------------- GQA params
-def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
+def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype, cross: bool = False) -> Params:
+    """GQA projections; ``cross`` (a decoder's cross-attention) has no
+    biases, as in the reference."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     p = {
         "wq": dense_init(gen, (d, h, hd), dtype),
@@ -57,17 +78,21 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Para
         "wv": dense_init(gen, (d, kv, hd), dtype),
         "wo": dense_init(gen, (h, hd, d), dtype, scale=1.0 / math.sqrt(h * hd)),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, n in (("bq", h), ("bk", kv), ("bv", kv)):
             p[name] = torch.zeros((n, hd), dtype=dtype, device=gen.device)
     return p
 
 
-def _project_qkv(p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(B,S,D) → q (B,S,H,hd), k/v (B,S,KV,hd)."""
+def _project_qkv(
+    p: Params, x: torch.Tensor, kv_x: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B,S,D) → q (B,S,H,hd), k/v (B,Skv,KV,hd); ``kv_x`` for
+    cross-attention."""
+    kv_src = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"])
     if "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -98,6 +123,14 @@ def _kernel_kw(kind: str, window: int) -> dict:
     return dict(causal=kind != "bidir", window=window if kind == "swa" else 0, chunk=window if kind == "chunked" else 0)
 
 
+def _kernel_route(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether q against k goes to the flash-attention kernel: a CUDA
+    tensor whose queries and keys have one length.  The reference's Pallas
+    route has the same condition (``sq == skv``); the kernel never
+    computes cross-attention."""
+    return q.is_cuda and q.shape[1] == k.shape[1]
+
+
 def _attention_core(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -108,12 +141,13 @@ def _attention_core(
     window: int,
     q_chunk: int = 1024,
 ) -> torch.Tensor:
-    """Scaled-dot-product GQA over full K/V (prefill: qpos and kpos both
-    ``arange``).  CUDA tensors go to the flash-attention kernel, CPU
-    tensors to :func:`_attention_core_plain`."""
+    """Scaled-dot-product GQA over full K/V (qpos and kpos both
+    ``arange``).  Self-attention on CUDA tensors goes to the
+    flash-attention kernel; CPU tensors and cross-attention to
+    :func:`_attention_core_plain`."""
     if kind not in KINDS:
         raise ValueError(f"unknown attention kind {kind!r}")
-    if q.is_cuda:
+    if _kernel_route(q, k):
         return kops.attention(q, k, v, **_kernel_kw(kind, window))
     return _attention_core_plain(q, k, v, qpos, kpos, kind, window, q_chunk)
 
@@ -201,21 +235,29 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def attention_train(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, window: int = 0) -> torch.Tensor:
-    """Full-sequence self-attention of the train forward (RoPE on; the
-    reference's ``kv_x`` cross-attention and ``rope=False`` encoder forms
-    wait for the encoder-decoder slice)."""
+def attention_train(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    kind: str,
+    window: int = 0,
+    kv_x: Optional[torch.Tensor] = None,
+    rope: bool = True,
+) -> torch.Tensor:
+    """Full-sequence attention: the train forward, the encoder
+    (``rope=False``) and cross-attention (keys and values from ``kv_x``)."""
     if kind not in KINDS:
         raise ValueError(f"unknown attention kind {kind!r}")
-    sq = x.shape[1]
-    q, k, v = _project_qkv(p, x)
-    pos = torch.arange(sq, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
-    if q.is_cuda:
+    q, k, v = _project_qkv(p, x, kv_x)
+    qpos = torch.arange(q.shape[1], dtype=torch.int32, device=x.device)
+    kpos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
+    if rope:
+        q = apply_rope(q, qpos, cfg.rope_theta)
+        k = apply_rope(k, kpos, cfg.rope_theta)
+    if _kernel_route(q, k):
         out = FlashAttentionFn.apply(q, k, v, kind, window)
     else:
-        out = _attention_core_plain(q, k, v, pos, pos, kind, window)
+        out = _attention_core_plain(q, k, v, qpos, kpos, kind, window)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
@@ -303,3 +345,118 @@ def attention_decode(
     probs = torch.softmax(scores, dim=-1).to(cv.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, cv).reshape(b, 1, h, hd)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+
+
+# ============================================================== MLA (minicpm3)
+def mla_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": dense_init(gen, (d, qr), dtype),  # down-project q
+        "wq_b": dense_init(gen, (qr, h, dn + dr), dtype),  # up-project q
+        "wkv_a": dense_init(gen, (d, kvr + dr), dtype),  # latent + shared k_rope
+        "wk_b": dense_init(gen, (kvr, h, dn), dtype),  # latent → per-head k_nope
+        "wv_b": dense_init(gen, (kvr, h, dv), dtype),  # latent → per-head v
+        "wo": dense_init(gen, (h, dv, d), dtype, scale=1.0 / math.sqrt(h * dv)),
+    }
+
+
+def _mla_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig, qpos: torch.Tensor):
+    """Project to q (nope‖rope), the latent c_kv and the shared k_rope
+    (RoPE through a head axis of 1)."""
+    kvr, dn = cfg.kv_lora_rank, cfg.nope_head_dim
+    q = torch.einsum("bsd,dr->bsr", x, p["wq_a"])
+    q = torch.einsum("bsr,rhe->bshe", q, p["wq_b"])  # (B,S,H,dn+dr)
+    q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], qpos, cfg.rope_theta)
+    kv = torch.einsum("bsd,de->bse", x, p["wkv_a"])  # (B,S,kvr+dr)
+    c_kv = kv[..., :kvr]
+    k_rope = apply_rope(kv[..., kvr:][:, :, None, :], qpos, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_softmax(s_nope: torch.Tensor, s_rope: torch.Tensor, mask: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype) -> torch.Tensor:
+    """The two score terms summed in their own dtype, then f32 (the
+    reference's order: in bf16 the sum rounds before the cast), scaled,
+    masked, softmaxed and cast to ``dtype``."""
+    scores = (s_nope + s_rope).float() / math.sqrt(cfg.nope_head_dim + cfg.rope_head_dim)
+    scores = scores.masked_fill(~mask, NEG_INF)
+    return torch.softmax(scores, dim=-1).to(dtype)
+
+
+def _mla_attend(p: Params, q_nope, q_rope, c_kv, k_rope, mask, cfg: ArchConfig) -> torch.Tensor:
+    """Absorbed-matmul attention (decode): wk_b folded into the query, so
+    the scores live in latent space and the latent cache is never expanded
+    per head."""
+    q_lat = torch.einsum("bshe,rhe->bshr", q_nope, p["wk_b"])
+    s_nope = torch.einsum("bshr,btr->bhst", q_lat, c_kv)
+    s_rope = torch.einsum("bshe,bte->bhst", q_rope, k_rope)
+    probs = _mla_softmax(s_nope, s_rope, mask, cfg, c_kv.dtype)
+    ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_kv)
+    out = torch.einsum("bshr,rhe->bshe", ctx_lat, p["wv_b"])  # (B,Sq,H,dv)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+
+
+def _mla_attend_reconstructed(p: Params, q_nope, q_rope, c_kv, k_rope, mask, cfg: ArchConfig) -> torch.Tensor:
+    """Full-sequence MLA (prefill and train) through per-head K/V
+    reconstructed from the latent; materialises (B, H, S, S) f32 scores."""
+    k_nope = torch.einsum("btr,rhe->bthe", c_kv, p["wk_b"])  # (B,T,H,dn)
+    v = torch.einsum("btr,rhe->bthe", c_kv, p["wv_b"])  # (B,T,H,dv)
+    s_nope = torch.einsum("bshe,bthe->bhst", q_nope, k_nope)
+    s_rope = torch.einsum("bshe,bte->bhst", q_rope, k_rope)
+    probs = _mla_softmax(s_nope, s_rope, mask, cfg, v.dtype)
+    out = torch.einsum("bhst,bthe->bshe", probs, v)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+
+
+def _causal(s: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Positions 0..s-1 and the (1, 1, s, s) causal mask over them."""
+    pos = torch.arange(s, dtype=torch.int32, device=device)
+    return pos, (pos[:, None] >= pos[None, :])[None, None]
+
+
+def mla_train(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    qpos, mask = _causal(x.shape[1], x.device)
+    return _mla_attend_reconstructed(p, *_mla_qkv(p, x, cfg, qpos), mask, cfg)
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, context: int, dtype: torch.dtype, device: torch.device) -> Params:
+    """The latent cache of the full context (not a ring: slot == position)."""
+    return {
+        "c_kv": torch.zeros((batch, context, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, context, cfg.rope_head_dim), dtype=dtype, device=device),
+        "pos": torch.full((batch, context), -1, dtype=torch.int32, device=device),
+    }
+
+
+def mla_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, cache: Params) -> Tuple[torch.Tensor, Params]:
+    """Prompt attention; writes slots 0..S-1 of ``cache`` in place and
+    returns it."""
+    s = x.shape[1]
+    qpos, mask = _causal(s, x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, qpos)
+    out = _mla_attend_reconstructed(p, q_nope, q_rope, c_kv, k_rope, mask, cfg)
+    cache["c_kv"][:, :s] = c_kv
+    cache["k_rope"][:, :s] = k_rope
+    cache["pos"][:, :s] = qpos[None]
+    return out, cache
+
+
+def mla_decode(
+    p: Params, x: torch.Tensor, cfg: ArchConfig, cache: Params, positions: torch.Tensor
+) -> Tuple[torch.Tensor, Params]:
+    """One-token step.  Writes each row's slot ``positions`` of ``cache`` in
+    place; a position outside the context writes nothing, as the
+    reference's one-hot write (its slot is rewritten with what it held)."""
+    b = x.shape[0]
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions[:, None])
+    ck, kr, cpos = cache["c_kv"], cache["k_rope"], cache["pos"]
+    ctx = ck.shape[1]
+    inside = (positions >= 0) & (positions < ctx)
+    slot = positions.clamp(0, ctx - 1).long()
+    rows = torch.arange(b, device=x.device)
+    ck[rows, slot] = torch.where(inside[:, None], c_kv[:, 0].to(ck.dtype), ck[rows, slot])
+    kr[rows, slot] = torch.where(inside[:, None], k_rope[:, 0].to(kr.dtype), kr[rows, slot])
+    cpos[rows, slot] = torch.where(inside, positions.to(cpos.dtype), cpos[rows, slot])
+    mask = ((cpos >= 0) & (cpos <= positions[:, None]))[:, None, None, :]
+    return _mla_attend(p, q_nope, q_rope, ck, kr, mask, cfg), cache

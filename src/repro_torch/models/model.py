@@ -1,7 +1,8 @@
-"""LM assembly: the dense decoder, MoE, SSM and hybrid branches.
+"""LM assembly for every architecture family.
 
-Port of the dense, MoE (deepseek-moe), SSM (mamba2) and hybrid (zamba2)
-branches of ``repro/models/model.py``:
+Port of ``repro/models/model.py``: the dense decoder, MLA (minicpm3), MoE
+(deepseek-moe, llama4-scout), SSM (mamba2), hybrid (zamba2), VLM
+(internvl2) and encoder-decoder (whisper) branches:
 
 * ``init_params(gen, cfg)``            — stacked per-layer params (leading ``L``)
 * ``forward_train(params, cfg, batch)`` → (logits, aux_loss)
@@ -17,11 +18,19 @@ tensors, so cache writes land in the stacked cache in place (where the JAX
 package donates it).  The hybrid's shared attention+MLP block runs after
 every ``attn_every``-th layer (on its own slice ``idx // attn_every`` of
 the stacked ``shared_attn`` cache when serving), where the reference has
-``lax.cond``.  A MoE layer's FFN is :func:`repro_torch.models.moe.moe_apply`;
-the train path sums its aux loss over the layers, the serving path drops
-it as the reference's does.  Other families (MLA, encoder-decoder, VLM)
-raise ``NotImplementedError`` until their slice is ported (ROADMAP.md,
-queue A); so do chunked-local attention layers (``llama4-scout``).  On a
+``lax.cond``; so do llama4's global layers (every ``global_every``-th
+attends over the full context, the others chunk-locally), in train,
+prefill and decode.  A MoE layer's FFN is
+:func:`repro_torch.models.moe.moe_apply`; the train path sums its aux loss
+over the layers, the serving path drops it as the reference's does.  The
+VLM takes its stubbed vision frontend's patch embeddings as
+``batch["prefix"]`` (B, P, D), placed before the text (the loss scores
+text positions only; decode positions count the prefix).  The
+encoder-decoder takes its stubbed audio frontend's frame embeddings as
+``batch["frames"]`` (B, encoder_seq, D) in the model's dtype: a
+bidirectional encoder without RoPE, then cross-attention in every decoder
+layer, whose keys and values ``prefill`` caches once a request
+(``cross_kv``) for ``decode_step``.  On a
 card the train forward runs every kernel through an ``autograd.Function``
 (:class:`~repro_torch.models.attention.FlashAttentionFn`,
 :class:`~repro_torch.models.ssm.SSDChunkFn`,
@@ -55,16 +64,12 @@ def model_dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    plain = not cfg.is_encdec and cfg.frontend == "none"
-    decoder = cfg.family in ("dense", "moe") and cfg.attn_kind in ("full", "swa")
-    hybrid = cfg.family == "hybrid" and cfg.attn_kind == "swa" and cfg.attn_every > 0
-    if not (plain and (decoder or cfg.family == "ssm" or hybrid)):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} with {cfg.attn_kind!r} attention is not "
-            "ported yet; the port has the GQA decoder (dense or MoE, full or SWA attention), "
-            "the SSM and the SWA hybrid only (ROADMAP.md, queue A)"
-        )
+def _layer_kind(cfg: ArchConfig, idx: int) -> Tuple[str, int]:
+    """Decoder layer ``idx``'s attention kind and window: llama4-style,
+    every ``global_every``-th chunked layer attends globally."""
+    if cfg.attn_kind == "chunked" and cfg.global_every and (idx + 1) % cfg.global_every == 0:
+        return "full", 0
+    return cfg.attn_kind, cfg.window
 
 
 def _index(tree: Any, i: int) -> Any:
@@ -108,10 +113,11 @@ def _init_stacked(make, n: int) -> Any:
 
 # ------------------------------------------------------------------- params
 def _block_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
-    """Pre-norm attention + FFN (``moe`` in a MoE layer): a dense or MoE
-    layer, or the hybrid's shared block."""
+    """Pre-norm attention (GQA or MLA) + FFN (``moe`` in a MoE layer): a
+    dense, MLA or MoE layer, or the hybrid's shared block."""
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=gen.device)  # noqa: E731
-    p = {"ln1": ones(), "attn": attn.attn_init(gen, cfg, dtype), "ln2": ones()}
+    mixer = attn.mla_init if cfg.attn_kind == "mla" else attn.attn_init
+    p = {"ln1": ones(), "attn": mixer(gen, cfg, dtype), "ln2": ones()}
     if cfg.is_moe:
         p["moe"] = moe_mod.moe_init(gen, cfg, dtype)
     else:
@@ -128,9 +134,19 @@ def _layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Pa
     return _block_init(gen, cfg, dtype)
 
 
+def _encoder_layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=gen.device)  # noqa: E731
+    return {"ln1": ones(), "attn": attn.attn_init(gen, cfg, dtype), "ln2": ones(),
+            "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff, dtype, gated=cfg.gated_ffn)}
+
+
+def _cross_layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
+    return {"ln": torch.ones((cfg.d_model,), dtype=dtype, device=gen.device),
+            "attn": attn.attn_init(gen, cfg, dtype, cross=True)}
+
+
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
     """Random weights drawn from ``gen``, on ``gen``'s device."""
-    _check_ported(cfg)
     dtype = model_dtype(cfg)
     p: Params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
@@ -141,11 +157,41 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
     p["layers"] = _init_stacked(lambda: _layer_init(gen, cfg, dtype), cfg.n_layers)
     if cfg.family == "hybrid":
         p["shared_block"] = _block_init(gen, cfg, dtype)
+    if cfg.is_encdec:
+        p["encoder"] = _init_stacked(lambda: _encoder_layer_init(gen, cfg, dtype), cfg.encoder_layers)
+        p["enc_ln_f"] = torch.ones((cfg.d_model,), dtype=dtype, device=gen.device)
+        p["cross"] = _init_stacked(lambda: _cross_layer_init(gen, cfg, dtype), cfg.n_layers)
     return p
 
 
 def _embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens]
+
+
+def _embed_inputs(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Token embeddings, behind the VLM's ``prefix`` where the batch has one."""
+    x = _embed_tokens(params, batch["tokens"])
+    if cfg.frontend == "vision" and "prefix" in batch:
+        x = torch.cat([batch["prefix"].to(x.dtype), x], dim=1)
+    return x
+
+
+def _encode(params: Params, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Bidirectional encoder (no RoPE) over the stubbed frontend's frame
+    embeddings (B, encoder_seq, D)."""
+    x = frames
+    layers = _unbind(params["encoder"])
+    for i in range(cfg.encoder_layers):
+        lp = _index(layers, i)
+        x = x + attn.attention_train(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, "bidir", rope=False)
+        x = x + ffn_apply(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), gated=cfg.gated_ffn)
+    return rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
+
+
+def _cross_attend(cp: Params, cfg: ArchConfig, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+    """A decoder layer's cross-attention over the encoder output, prompt
+    and train path (plain: its queries and keys differ in length)."""
+    return attn.attention_train(cp["attn"], rms_norm(x, cp["ln"], cfg.norm_eps), cfg, "bidir", kv_x=enc_out, rope=False)
 
 
 def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -155,11 +201,14 @@ def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------- train forward
-def _mixer_train(lp: Params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Sequence mixer (SSD or GQA) on a normalized input, train path."""
+def _mixer_train(lp: Params, h: torch.Tensor, cfg: ArchConfig, idx: int) -> torch.Tensor:
+    """Sequence mixer (SSD, MLA or GQA) of layer ``idx`` on a normalized
+    input, train path."""
     if "ssm" in lp:
         return ssm_mod.ssm_apply(lp["ssm"], h, cfg)[0]
-    return attn.attention_train(lp["attn"], h, cfg, cfg.attn_kind, cfg.window)
+    if cfg.attn_kind == "mla":
+        return attn.mla_train(lp["attn"], h, cfg)
+    return attn.attention_train(lp["attn"], h, cfg, *_layer_kind(cfg, idx))
 
 
 def _channel_train(lp: Params, h: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -196,15 +245,21 @@ def _dots_context(no_batch: bool) -> Callable:
     return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
-def _decoder_train(params: Params, cfg: ArchConfig, x: torch.Tensor, remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the decoder stack; returns (hidden, aux_loss_sum)."""
+def _decoder_train(
+    params: Params, cfg: ArchConfig, x: torch.Tensor, enc_out: Optional[torch.Tensor] = None, remat: str = "none"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the decoder stack (cross-attending to ``enc_out`` where the
+    model has an encoder); returns (hidden, aux_loss_sum)."""
     if remat not in REMATS:
         raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
 
     shared = params.get("shared_block")
 
-    def body(h: torch.Tensor, lp: Params, idx: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        h = h + _mixer_train(lp, rms_norm(h, lp["ln1"], cfg.norm_eps), cfg)
+    def body(h: torch.Tensor, lp: Params, cp: Optional[Params], idx: int,
+             enc: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        h = h + _mixer_train(lp, rms_norm(h, lp["ln1"], cfg.norm_eps), cfg, idx)
+        if cp is not None:
+            h = h + _cross_attend(cp, cfg, h, enc)
         a_loss = None
         if "ln2" in lp:  # SSM layers have no channel mixer
             f, a_loss = _channel_train(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)
@@ -222,12 +277,14 @@ def _decoder_train(params: Params, cfg: ArchConfig, x: torch.Tensor, remat: str 
             ckpt_kw["context_fn"] = _dots_context(remat == "dots_no_batch")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = _unbind(params["layers"])
+    cross = _unbind(params["cross"]) if "cross" in params else None
     for i in range(cfg.n_layers):
         lp = _index(layers, i)
+        cp = None if cross is None else _index(cross, i)
         if ckpt_kw is None:
-            x, a_loss = body(x, lp, i)
+            x, a_loss = body(x, lp, cp, i, enc_out)
         else:
-            x, a_loss = checkpoint(body, x, lp, i, **ckpt_kw)
+            x, a_loss = checkpoint(body, x, lp, cp, i, enc_out, **ckpt_kw)
         if a_loss is not None:
             aux = aux + a_loss
     return x, aux
@@ -236,19 +293,23 @@ def _decoder_train(params: Params, cfg: ArchConfig, x: torch.Tensor, remat: str 
 def forward_train(
     params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], remat: str = "none"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """batch: tokens (B, S).  Returns (logits (B, S, V), aux_loss)."""
-    _check_ported(cfg)
-    x = _embed_tokens(params, batch["tokens"])
-    x, aux = _decoder_train(params, cfg, x, remat=remat)
+    """batch: tokens (B, S) [+ ``prefix`` (B, P, D) | ``frames`` (B, F, D)].
+    Returns (logits (B, P + S, V), aux_loss)."""
+    x = _embed_inputs(params, cfg, batch)
+    enc_out = _encode(params, cfg, batch["frames"]) if cfg.is_encdec else None
+    x, aux = _decoder_train(params, cfg, x, enc_out, remat=remat)
     return _logits(params, cfg, x), aux
 
 
 def loss_fn(
     params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], remat: str = "none"
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross entropy over positions whose label is >= 0,
-    plus the router aux loss; returns (total, {"loss", "xent", "aux"})."""
+    """Mean next-token cross entropy over text positions whose label is
+    >= 0 (a VLM's prefix gives context only), plus the router aux loss;
+    returns (total, {"loss", "xent", "aux"})."""
     logits, aux = forward_train(params, cfg, batch, remat=remat)
+    if cfg.frontend == "vision" and "prefix" in batch:
+        logits = logits[:, batch["prefix"].shape[1]:]
     labels = batch["labels"]
     mask = (labels >= 0).float()
     xent = cross_entropy_loss(logits, torch.clamp_min(labels, 0), mask)
@@ -263,36 +324,54 @@ def _stacked(one: Params, n: int) -> Params:
 
 def init_cache(cfg: ArchConfig, batch: int, context: int, device: Union[str, torch.device, None] = "cuda") -> Params:
     """Stacked (per-layer leading dim) decode cache: zero K/V with every
-    position tag -1 (``kv``, dense), zero SSM and conv state (``ssm``), and
-    for the hybrid one K/V ring per shared-block invocation
-    (``shared_attn``)."""
-    _check_ported(cfg)
+    position tag -1 (``kv``: the GQA ring, or MLA's latent cache), zero SSM
+    and conv state (``ssm``), for the hybrid one K/V ring per shared-block
+    invocation (``shared_attn``), and for the encoder-decoder each layer's
+    cross-attention K/V over the encoder's frames (``cross_kv``)."""
     dtype, dev = model_dtype(cfg), resolve_device(device)
     L = cfg.n_layers
-    if cfg.family in ("dense", "moe"):
-        return {"kv": _stacked(attn.init_kv_cache(cfg, batch, context, dtype, dev), L)}
-    cache = {"ssm": _stacked(ssm_mod.init_ssm_cache(cfg, batch, dtype, dev), L)}
-    if cfg.family == "hybrid":
-        n_inv = (L + cfg.attn_every - 1) // cfg.attn_every
-        cache["shared_attn"] = _stacked(attn.init_kv_cache(cfg, batch, context, dtype, dev), n_inv)
+    cache: Params = {}
+    if cfg.family in ("ssm", "hybrid"):
+        cache["ssm"] = _stacked(ssm_mod.init_ssm_cache(cfg, batch, dtype, dev), L)
+        if cfg.family == "hybrid":
+            n_inv = (L + cfg.attn_every - 1) // cfg.attn_every
+            cache["shared_attn"] = _stacked(attn.init_kv_cache(cfg, batch, context, dtype, dev), n_inv)
+        return cache
+    init = attn.init_mla_cache if cfg.attn_kind == "mla" else attn.init_kv_cache
+    cache["kv"] = _stacked(init(cfg, batch, context, dtype, dev), L)
+    if cfg.is_encdec:
+        shape = (L, batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache["cross_kv"] = {n: torch.zeros(shape, dtype=dtype, device=dev) for n in ("k", "v")}
     return cache
 
 
 # ---------------------------------------------------------- prefill / decode
 def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cache: Params) -> Tuple[torch.Tensor, Params]:
-    """Process the prompt ``batch["tokens"]`` (B, S); returns (logits for
-    the last position (B, 1, V), cache filled in place)."""
-    _check_ported(cfg)
-    x = _embed_tokens(params, batch["tokens"])
+    """Process the prompt ``batch["tokens"]`` (B, S) [+ ``prefix`` |
+    ``frames``]; returns (logits for the last position (B, 1, V), cache
+    filled in place)."""
+    x = _embed_inputs(params, cfg, batch)
+    enc_out = None
+    if cfg.is_encdec:  # the cross K/V, once a request
+        enc_out = _encode(params, cfg, batch["frames"])
+        ck = cache["cross_kv"]
+        for i in range(cfg.n_layers):
+            ca = _index(params["cross"], i)["attn"]
+            ck["k"][i] = torch.einsum("bsd,dhk->bshk", enc_out, ca["wk"])
+            ck["v"][i] = torch.einsum("bsd,dhk->bshk", enc_out, ca["wv"])
     for i in range(cfg.n_layers):
         lp = _index(params["layers"], i)
         hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if "ssm" in lp:
             a, _ = ssm_mod.ssm_apply(lp["ssm"], hn, cfg, state=_index(cache["ssm"], i))
-            x = x + a
+        elif cfg.attn_kind == "mla":
+            a, _ = attn.mla_prefill(lp["attn"], hn, cfg, _index(cache["kv"], i))
         else:
-            a, _ = attn.attention_prefill(lp["attn"], hn, cfg, _index(cache["kv"], i), cfg.attn_kind, cfg.window)
-            x = x + a
+            a, _ = attn.attention_prefill(lp["attn"], hn, cfg, _index(cache["kv"], i), *_layer_kind(cfg, i))
+        x = x + a
+        if enc_out is not None:
+            x = x + _cross_attend(_index(params["cross"], i), cfg, x, enc_out)
+        if "ln2" in lp:
             x = x + _channel(lp, cfg, rms_norm(x, lp["ln2"], cfg.norm_eps))
         if "shared_block" in params and i % cfg.attn_every == 0:
             x = _shared_block(params["shared_block"], cfg, x, _index(cache["shared_attn"], i // cfg.attn_every))
@@ -318,6 +397,18 @@ def _shared_block(sp: Params, cfg: ArchConfig, x: torch.Tensor, sa: Params, posi
     return x + ffn_apply(sp["ffn"], rms_norm(x, sp["ln2"], cfg.norm_eps), gated=cfg.gated_ffn)
 
 
+def _cross_decode(cp: Params, cfg: ArchConfig, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """One token's cross-attention against the cached encoder K/V
+    (B, encoder_seq, KV, hd)."""
+    b, h, kvh, hd = x.shape[0], cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = torch.einsum("bsd,dhk->bshk", rms_norm(x, cp["ln"], cfg.norm_eps), cp["attn"]["wq"])
+    qg = q.reshape(b, 1, kvh, h // kvh, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, ck).float() / math.sqrt(hd)
+    probs = torch.softmax(scores, dim=-1).to(cv.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, cv).reshape(b, 1, h, hd)
+    return torch.einsum("bshk,hkd->bsd", out, cp["attn"]["wo"])
+
+
 def decode_step(
     params: Params,
     cfg: ArchConfig,
@@ -326,17 +417,21 @@ def decode_step(
     cache: Params,
 ) -> Tuple[torch.Tensor, Params]:
     """One token per row; returns (logits (B, 1, V), cache updated in place)."""
-    _check_ported(cfg)
     x = _embed_tokens(params, tokens)
     for i in range(cfg.n_layers):
         lp = _index(params["layers"], i)
         hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if "ssm" in lp:
             a, _ = ssm_mod.ssm_decode(lp["ssm"], hn, cfg, _index(cache["ssm"], i))
-            x = x + a
+        elif cfg.attn_kind == "mla":
+            a, _ = attn.mla_decode(lp["attn"], hn, cfg, _index(cache["kv"], i), positions)
         else:
-            a, _ = attn.attention_decode(lp["attn"], hn, cfg, _index(cache["kv"], i), positions, cfg.attn_kind, cfg.window)
-            x = x + a
+            a, _ = attn.attention_decode(lp["attn"], hn, cfg, _index(cache["kv"], i), positions, *_layer_kind(cfg, i))
+        x = x + a
+        if "cross" in params:
+            ck = cache["cross_kv"]
+            x = x + _cross_decode(_index(params["cross"], i), cfg, x, ck["k"][i], ck["v"][i])
+        if "ln2" in lp:
             x = x + _channel(lp, cfg, rms_norm(x, lp["ln2"], cfg.norm_eps))
         if "shared_block" in params and i % cfg.attn_every == 0:
             x = _shared_block(params["shared_block"], cfg, x, _index(cache["shared_attn"], i // cfg.attn_every), positions)

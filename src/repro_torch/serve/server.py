@@ -14,7 +14,11 @@ queue A).
 
 The model runs on the device its parameters lie on.  Where the JAX server
 donates the cache to ``jit``, this one updates it in place under
-:func:`torch.inference_mode`.
+:func:`torch.inference_mode`.  A request is tokens only, as in the
+reference, whose ``DecodeCore`` builds the prefill batch from the prompt
+alone: a VLM is served text-only, and an encoder-decoder, whose prefill
+needs its encoder's frames, is refused (drive it through ``prefill`` and
+``decode_step``).
 """
 from __future__ import annotations
 
@@ -100,6 +104,12 @@ class DecodeCore:
         max_prefill: int = 64,
         prefill_chunk: int = 0,
     ):
+        if arch.is_encdec:
+            raise ValueError(
+                f"{arch.name} is an encoder-decoder: its prefill needs the encoder's frames, and a request "
+                "carries tokens only (the reference's DecodeCore builds the prefill batch from the prompt "
+                "tokens alone); drive it through models.prefill and models.decode_step"
+            )
         self.arch, self.params = arch, params
         self.device = params["embed"].device
         self.slots, self.context = slots, context

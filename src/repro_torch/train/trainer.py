@@ -71,6 +71,9 @@ class Trainer:
         batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch_np.items()}
         for k in ("tokens", "labels"):
             batch[k] = batch[k].long()
+        for k in ("prefix", "frames"):  # the frontends' stubs arrive in f32
+            if k in batch:
+                batch[k] = batch[k].to(getattr(torch, self.arch.dtype))
         return batch
 
     # ------------------------------------------------------------------ run

@@ -145,9 +145,3 @@ def test_bf16_hybrid_params_cross_bit_exact():
         dtypes.add(t.dtype)
     assert dtypes == {torch.bfloat16, torch.float32}
 
-
-@pytest.mark.parametrize("name", ["llama4-scout-17b-a16e", "minicpm3-4b", "whisper-large-v3"])
-def test_other_families_are_not_ported_yet(name):
-    """llama4-scout is a MoE, but its chunked-local attention is not ported."""
-    with pytest.raises(NotImplementedError, match="queue A"):
-        init_params(torch.Generator().manual_seed(0), SMOKES[name])

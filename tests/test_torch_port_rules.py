@@ -22,7 +22,11 @@
   ``GroupedMatmulFn``), whose input gradients equal autograd through the
   kernels' plain versions bit for bit (on CPU tensors here; on the card,
   ``gpu``-marked, with the model's gradients against the plain path's and
-  the launches each Function makes)."""
+  the launches each Function makes).
+* Cross-attention (queries and keys of different lengths) takes the plain
+  path and launches nothing; the MLA, encoder-decoder, VLM and llama4
+  smokes launch each kernel exactly as often as their layers say, prefill
+  and decode (``gpu``-marked)."""
 import ast
 import math
 from pathlib import Path
@@ -105,6 +109,8 @@ def test_entry_points_raise_without_a_card(no_card):
     with pytest.raises(RuntimeError):
         init_cache(SMOKES["tinyllama-1.1b"], 1, 8)
     with pytest.raises(RuntimeError):
+        init_cache(SMOKES["whisper-large-v3"], 1, 8)
+    with pytest.raises(RuntimeError):
         params_from_jax({"w": np.zeros(2, np.float32)})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_main(["--arch", "tinyllama-1.1b", "--steps", "1"])
@@ -118,6 +124,8 @@ def test_entry_points_run_on_the_cpu_when_asked(no_card):
     assert resolve_device("cpu").type == "cpu"
     cache = init_cache(SMOKES["tinyllama-1.1b"], 1, 8, device="cpu")
     assert cache["kv"]["pos"].device.type == "cpu"
+    cache = init_cache(SMOKES["whisper-large-v3"], 1, 8, device="cpu")
+    assert {t.device.type for c in cache.values() for t in c.values()} == {"cpu"}
     assert params_from_jax({"w": np.zeros(2, np.float32)}, "cpu")["w"].device.type == "cpu"
     assert serve_main(["--arch", "tinyllama-1.1b", "--device", "cpu", "--requests", "2", "--clients", "1",
                        "--max-new", "2", "--prompt-len", "3"]) == 0
@@ -147,6 +155,10 @@ def test_entry_points_run_on_the_cpu_when_asked(no_card):
     (1, 15, 4, 2, 64, True, 0, 0, torch.bfloat16),
     (2, 65, 4, 2, 32, False, 0, 0, torch.bfloat16),
     (4, 1024, 32, 4, 64, True, 0, 0, torch.bfloat16),  # tinyllama-1.1b's train step
+    (1, 1500, 20, 20, 64, False, 0, 0, torch.bfloat16),  # whisper-large-v3's encoder: bidir, ragged S
+    (1, 1280, 64, 8, 128, True, 0, 0, torch.bfloat16),  # internvl2-76b: 256 prefix + 1024 tokens
+    (1, 2304, 40, 8, 128, True, 0, 1024, torch.bfloat16),  # llama4-scout's chunked layers, boundaries inside S
+    (1, 2304, 40, 8, 128, True, 0, 0, torch.bfloat16),  # and its global layers
 ])
 def test_cuda_kernel_matches_plain(case):
     if not torch.cuda.is_available():
@@ -326,6 +338,11 @@ def test_ssd_heads_per_block_fills_one_wave():
     ((2, 1, 70, 45), torch.bfloat16, 0.05),
     ((2, 127, 70, 45), torch.bfloat16, 0.05),
     ((2, 129, 70, 45), torch.bfloat16, 0.05),
+    # llama4-scout at its init's scale 1/sqrt(E): a 1024-token prefill's
+    # gate/up and down (top-1, capacity 80), and a decode step of 8 slots
+    ((16, 80, 5120, 8192), torch.bfloat16, 0.25),
+    ((16, 80, 8192, 5120), torch.bfloat16, 0.25),
+    ((16, 32, 5120, 8192), torch.bfloat16, 0.25),
 ])
 def test_cuda_grouped_matmul_matches_plain(case, dtype, w_scale):
     if not torch.cuda.is_available():
@@ -719,3 +736,84 @@ def test_cuda_family_trains_run_their_kernels(arch, dtype):
     assert abs(loss_k.item() - lp.item()) <= tol * max(1.0, abs(lp.item()))
     for a, b in zip(leaves(grads_k), leaves(gp)):
         assert torch.isfinite(a).all() and (a.float() - b.float()).abs().max().item() <= tol * gmax
+
+
+@pytest.mark.gpu
+def test_cuda_cross_attention_takes_the_plain_path():
+    """On the card, queries and keys of different lengths (a decoder's
+    cross-attention over the encoder's frames) take the plain path by the
+    shape test and launch nothing, prompt and train path alike; one length
+    launches the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import attention as attn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((2, 24, 4, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((2, 40, 4, 64), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    qpos, kpos = torch.arange(24, device="cuda"), torch.arange(40, device="cuda")
+    before = flash_attention.launches
+    out = attn._attention_core(q, k, v, qpos, kpos, "bidir", 0)
+    assert flash_attention.launches == before
+    assert torch.equal(out, attn._attention_core_plain(q, k, v, qpos, kpos, "bidir", 0))
+    cfg = SMOKES["whisper-large-v3"]
+    p = attn.attn_init(torch.Generator(device="cuda").manual_seed(1), cfg, torch.bfloat16, cross=True)
+    x = torch.randn((2, 24, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    enc = torch.randn((2, 40, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        attn.attention_train(p, x, cfg, "bidir", kv_x=enc, rope=False)
+        assert flash_attention.launches == before
+        attn.attention_train(p, enc, cfg, "bidir", rope=False)  # the encoder's self-attention
+    assert flash_attention.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "whisper-large-v3", "internvl2-76b", "llama4-scout-17b-a16e"])
+def test_cuda_new_families_launch_their_kernels(arch):
+    """A bf16 smoke model's prefill and decode step on the card: flash once
+    an attention layer a prefill (whisper's encoder and decoder
+    self-attention; none for MLA, none for cross-attention), the grouped
+    matmul three times a MoE layer a model call, nothing else; the logits
+    finite and within 5% of max |logit| of the same calls with every
+    kernel's plain version swapped in (llama4's on the kernel run's
+    routing: ``chip_smoke.routes``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import grouped_matmul
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = SMOKES[arch]
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40), generator=gen, device="cuda")}
+    if cfg.frontend == "vision":
+        batch["prefix"] = torch.randn((2, cfg.n_prefix_tokens, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    pos = torch.full((2,), 40 + (cfg.n_prefix_tokens if "prefix" in batch else 0), dtype=torch.int32, device="cuda")
+    nxt = torch.zeros((2, 1), dtype=torch.long, device="cuda")
+    flash = 0 if cfg.attn_kind == "mla" else cfg.n_layers + cfg.encoder_layers
+    gmm = 3 * cfg.n_layers if cfg.is_moe else 0
+    smoke = _chip_smoke()
+
+    def run():
+        with torch.inference_mode():
+            lp, _ = prefill(params, cfg, batch, init_cache(cfg, 2, 64, "cuda"))
+            c = init_cache(cfg, 2, 64, "cuda")
+            prefill(params, cfg, batch, c)
+            ld, _ = decode_step(params, cfg, nxt, pos, c)
+        return lp, ld
+
+    before = (flash_attention.launches, grouped_matmul.launches)
+    with smoke.routes() as rk:
+        lk = run()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - before[0], grouped_matmul.launches - before[1]) == (2 * flash, 3 * gmm)
+    with smoke.plain_kernels(ops), smoke.routes(rk.routes if cfg.is_moe else None):
+        lpl = run()
+    for a, b in zip(lk, lpl):
+        assert torch.isfinite(a).all()
+        assert (a.float() - b.float()).abs().max().item() <= 5e-2 * b.float().abs().max().item()

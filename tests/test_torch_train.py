@@ -46,7 +46,7 @@ from repro.train import make_train_step as j_make_step
 from repro_torch.bridge import params_from_jax, train_state_from_jax
 from repro_torch.configs import SMOKES
 from repro_torch.launch.train import main as train_main
-from repro_torch.models import forward_train, loss_fn
+from repro_torch.models import loss_fn
 from repro_torch.models.layers import cross_entropy_loss
 from repro_torch.optim import OptHParams, adamw_init, adamw_update, global_norm, warmup_cosine
 from repro_torch.train import TrainConfig, init_train_state, make_train_step
@@ -183,13 +183,6 @@ def test_grads_equal_across_remat_modes(cfgs, remat):
     assert float(l0) == float(l1)
     for a, b in zip(leaves(g0), leaves(g1)):
         assert torch.allclose(a, b, rtol=0, atol=1e-6)
-
-
-def test_unported_train_families_raise():
-    """The SSM, hybrid and MoE trains are ported (``tests/test_torch_train_families.py``);
-    the MLA family (``minicpm3-4b``) is not, and its train forward raises."""
-    with pytest.raises(NotImplementedError, match="queue A"):
-        forward_train({}, SMOKES["minicpm3-4b"], {"tokens": torch.zeros((1, 4), dtype=torch.long)})
 
 
 def test_bad_remat_and_microbatch_split_raise(cfgs):
