@@ -57,14 +57,27 @@ nothing of the JAX package.  In order, it:
    EF steps, bit for bit against its plain version and the host reference;
 5b. trains the other families, the SSD and grouped-matmul kernels inside
    their ``autograd.Function``s: for each of ``mamba2-130m``,
-   ``zamba2-1.2b`` (its shared block at layer 0 included) and
-   ``deepseek-moe-16b``, first the train step's loss and gradients through
-   the kernels against the plain path (full width, first 2 layers, f32 and
-   bf16; deepseek's runs on one run's expert choices, their gates and aux
-   loss from their own router, see ``routes``); then 8 bf16 steps on one
-   fixed batch (mamba2 and zamba2 at full depth with int8 error feedback,
-   deepseek cut to 4 layers with the default grad sync): the loss must
-   fall, and each kernel must launch exactly its count a step;
+   ``zamba2-1.2b`` (its shared block at layer 0 included),
+   ``deepseek-moe-16b``, ``minicpm3-4b``, ``whisper-large-v3``,
+   ``internvl2-76b`` and ``llama4-scout-17b-a16e``, first the train
+   step's loss and gradients through the kernels against the plain path
+   (full width, first 2 layers, internvl2's and llama4's first 1, f32 with
+   the weights converted in place and bf16; the MoE models' runs on one
+   run's expert choices, their gates and aux loss from their own router,
+   see ``routes``); then 8 bf16 steps on one fixed batch, each model at
+   its own depth, sequence length, remat mode and grad sync (see
+   FAMILY_TRAINS: mamba2, zamba2 and whisper at full depth with int8
+   error feedback, whisper at S=448 over 1500 frames; minicpm3 at all 62
+   layers under ``remat="full"``; deepseek cut to 4 layers, internvl2 to
+   2 behind a 256-token prefix, llama4 to 1): the loss must fall, and each
+   kernel must launch exactly its count a step;
+5c. checkpoint/restart: ``Trainer`` trains ``mamba2-130m`` (full depth,
+   int8 error feedback) 3 steps with a checkpoint directory (asynchronous
+   saves through its executor), a second ``Trainer`` resumes on it to
+   step 6, a third runs 6 steps uninterrupted; the restored state must be
+   bit for bit the saved one and the resumed losses the uninterrupted
+   run's (see ``restart_path``); the save and restore walls and the bytes
+   written are printed;
 6. times each kernel, its plain version and the library yardstick for the
    same function, with CUDA events (wall a call, the wrapper's host time
    included), and the kernel and the yardstick by the profiler's device
@@ -89,6 +102,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -985,15 +999,19 @@ def _zeros_ef(tree):
     return tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device), tree)
 
 
-def _ef_equal(a, b) -> bool:
-    """Two EF trees equal bit for bit (compared on the first one's device)."""
+def _bits_equal(a, b) -> bool:
+    """Two trees of tensors equal bit for bit: the same dtypes and shapes,
+    floats compared as their bit patterns (on the first one's device)."""
     import torch
 
     from repro_torch.tree import leaves
 
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
     la, lb = leaves(a), leaves(b)
     return len(la) == len(lb) and all(
-        x.shape == y.shape and torch.equal(x.view(torch.int32), y.to(x.device).view(torch.int32)) for x, y in zip(la, lb)
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.view(ints.get(x.dtype, x.dtype)), y.to(x.device).view(ints.get(y.dtype, y.dtype)))
+        for x, y in zip(la, lb)
     )
 
 
@@ -1010,7 +1028,7 @@ def pack_three(tree, ef_k, ef_p, ef_h, name) -> tuple:
     t0 = time.monotonic()
     host, new_h = pack_grads_q8(tree, ef_h)
     host_s = time.monotonic() - t0
-    ok = got == plain == host and _ef_equal(new_k, new_p) and _ef_equal(new_h, new_k)
+    ok = got == plain == host and _bits_equal(new_k, new_p) and _bits_equal(new_h, new_k)
     print(f"grad_pack {name}: wire {len(got)} bytes, kernel == plain == host: {ok} "
           f"(host reference {host_s} s) {'ok' if ok else 'MISS'}")
     if not ok:
@@ -1035,21 +1053,40 @@ def check_grad_pack() -> None:
         ef_k, ef_p, ef_h, _ = pack_three(g, ef_k, ef_p, ef_h, f"multistep EF step {step}")
 
 
+def _max_abs(x, y=None, chunk=1 << 26) -> float:
+    """max |x| (or max |x - y|) in f32, a chunk of elements at a time, so
+    that a 1 B-element leaf (llama4's embeddings) needs no full-size f32
+    temporaries."""
+    xf, yf = x.reshape(-1), None if y is None else y.reshape(-1)
+    out = 0.0
+    for i in range(0, xf.numel(), chunk):
+        d = xf[i : i + chunk].float()
+        if yf is not None:
+            d = d - yf[i : i + chunk].float()
+        out = max(out, d.abs().max().item())
+    return out
+
+
 def _grad_rel(a, b, ref) -> float:
     """max |a - b| over all leaves, as a share of max |ref|."""
     from repro_torch.tree import leaves
 
-    err = max((x.float() - y.float()).abs().max().item() for x, y in zip(leaves(a), leaves(b)))
-    return err / max(r.float().abs().max().item() for r in leaves(ref))
+    err = max(_max_abs(x, y) for x, y in zip(leaves(a), leaves(b)))
+    return err / max(_max_abs(r) for r in leaves(ref))
 
 
-def train_batch(arch, seed):
+def train_batch(arch, seed, seq=None):
+    """Batch 0 of the SyntheticLM stream of ``seed`` (B=TRAIN_B, S=``seq``
+    or TRAIN_S) on the card: tokens and labels as int64, the frontends'
+    stubs (a VLM's ``prefix``, an encoder's ``frames``) in the model's
+    dtype, as ``Trainer`` moves them."""
     import torch
 
     from repro_torch.data import SyntheticLM
 
-    b = SyntheticLM(arch, TRAIN_B, TRAIN_S, seed=seed).make_batch(0)
-    return {k: torch.from_numpy(v).long().cuda() for k, v in b.items()}
+    b = SyntheticLM(arch, TRAIN_B, seq or TRAIN_S, seed=seed).make_batch(0)
+    return {k: torch.from_numpy(v).cuda().to(torch.long if k in ("tokens", "labels") else getattr(torch, arch.dtype))
+            for k, v in b.items()}
 
 
 def train_gate(ops) -> None:
@@ -1235,57 +1272,73 @@ def grad_pack_full(grads) -> dict:
             "max_abs_err": err, "device_ms": t_device}
 
 
-def family_train_gate(ops, name, f32_cap) -> None:
+def family_train_gate(ops, ft) -> None:
     """Phase 5b: one family's train step, loss and gradients through the
     kernels against the plain path, at full width on its first
-    TRAIN_GATE_LAYERS layers, f32 and bf16 (see FAMILY_TRAINS).  A MoE
-    model's four runs share the f32 kernel run's expert choices, each with
-    its own gates and aux loss (``routes(regate=True)``)."""
+    ``ft.gate_layers`` layers (of each stack, where the model has an
+    encoder), f32 and bf16, on its train batch (see FAMILY_TRAINS).  The
+    f32 runs take the weights converted in place, one leaf at a time, and
+    back after them (bf16 -> f32 -> bf16 is exact), and the stubs cast from
+    the bf16 ones; each gradient tree is freed once its distances are read,
+    so at most the f32 weights and two f32 gradient trees (12 B a
+    parameter) are on the card at once: llama4's one layer and embeddings,
+    4.27 B parameters, have no room for the 18 B a parameter of an f32
+    copy beside four trees.  A MoE model's four runs share the f32 kernel
+    run's expert choices, each with its own gates and aux loss
+    (``routes(regate=True)``)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.train.step import loss_and_grads
-    from repro_torch.tree import tree_map
 
-    arch = get_config(name).variant(n_layers=TRAIN_GATE_LAYERS)
+    arch = get_config(ft.name).variant(n_layers=ft.gate_layers)
+    if arch.is_encdec:
+        arch = arch.variant(encoder_layers=ft.gate_layers)
     arch32 = arch.variant(dtype="float32")
     params = init_params(torch.Generator(device="cuda").manual_seed(0), arch)
-    p32 = tree_map(lambda t: t.float(), params)
-    batch = train_batch(arch, 0)
+    batch = train_batch(arch, 0, ft.seq)
+    batch32 = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
+    dtypes = dtypes_of(params)
+    retype_(params, torch.float32)
     with routes() as r32:
-        (lk32, mk32), gk32 = loss_and_grads(p32, arch32, batch)
+        (lk32, mk32), gk32 = loss_and_grads(params, arch32, batch32)
     replay = r32.routes if r32.routes else None
-    with plain_kernels(ops):
-        with routes(replay, regate=True):
-            (lp32, mp32), gp32 = loss_and_grads(p32, arch32, batch)
-        with routes(replay, regate=True):
-            (lp, _), gp = loss_and_grads(params, arch, batch)
+    with plain_kernels(ops), routes(replay, regate=True):
+        (lp32, mp32), gp32 = loss_and_grads(params, arch32, batch32)
+    f32 = _grad_rel(gk32, gp32, gp32)
+    del gk32
+    retype_(params, dtypes)
+    torch.cuda.empty_cache()
+    with plain_kernels(ops), routes(replay, regate=True):
+        (lp, _), gp = loss_and_grads(params, arch, batch)
+    rel_p = _grad_rel(gp, gp32, gp32)
     with routes(replay, regate=True):
         (lk, mk), gk = loss_and_grads(params, arch, batch)
+    rel_k, bf16 = _grad_rel(gk, gp32, gp32), _grad_rel(gk, gp, gp)
     torch.cuda.synchronize()
-    f32 = _grad_rel(gk32, gp32, gp32)
-    bf16 = _grad_rel(gk, gp, gp)
-    rel_k, rel_p = _grad_rel(gk, gp32, gp32), _grad_rel(gp, gp32, gp32)
     lf32 = abs(lk32.item() - lp32.item()) / lp32.item()
     aux = f" aux f32 kernels {mk32['aux'].item()} plain {mp32['aux'].item()} bf16 kernels {mk['aux'].item()};" if replay else ""
-    print(f"train gate ({name}, {TRAIN_GATE_LAYERS} layers, full width, B={TRAIN_B} S={TRAIN_S}"
+    enc = f" + {arch.encoder_layers} encoder layers over {arch.encoder_seq} frames" if arch.is_encdec else ""
+    pre = f" after a {arch.n_prefix_tokens}-token prefix" if "prefix" in batch else ""
+    print(f"train gate ({ft.name}, {ft.gate_layers} layers{enc}, full width, B={TRAIN_B} S={ft.seq}{pre}"
           f"{', expert choices of the f32 kernel run' if replay else ''}): f32 kernels vs plain: loss rel={lf32} "
           f"grads rel={f32} tol={FAMILY_F32_TOL};{aux} bf16 kernels vs bf16 plain: grads rel={bf16}; vs f32 plain: "
-          f"kernels rel={rel_k} plain rel={rel_p} tol=min(plain + {F32_MARGIN}, {f32_cap})")
-    ok = f32 <= FAMILY_F32_TOL and lf32 <= FAMILY_F32_TOL and rel_k <= rel_p + F32_MARGIN and rel_k <= f32_cap
+          f"kernels rel={rel_k} plain rel={rel_p} tol=min(plain + {F32_MARGIN}, {ft.f32_cap})")
+    ok = f32 <= FAMILY_F32_TOL and lf32 <= FAMILY_F32_TOL and rel_k <= rel_p + F32_MARGIN and rel_k <= ft.f32_cap
     if not (ok and all(math.isfinite(x) for x in (f32, bf16, rel_k, rel_p, lk.item()))):
-        fail(f"{name}: the train step through the kernels disagrees with the plain path")
-    del params, p32, gk32, gp32, gp, gk
+        fail(f"{ft.name}: the train step through the kernels disagrees with the plain path")
+    del params, gp32, gp, gk
     torch.cuda.empty_cache()
 
 
-def family_train(kernels, name, layers, grad_sync, per_step) -> dict:
+def family_train(kernels, ft) -> dict:
     """Phase 5b: one family trains FAMILY_TRAIN_STEPS steps at full width
-    (its first ``layers`` layers, or all) on one fixed batch; the loss must
-    fall, and every kernel must launch ``per_step[kernel]`` times each step.
-    Every kernel's count is set to 0 just before the steps and read just
-    after.  Returns the launches."""
+    (its first ``ft.layers`` layers, or all), at its sequence length and
+    remat mode, on one fixed batch; the loss must fall, and every kernel
+    must launch ``ft.per_step[kernel]`` times each step.  Every kernel's
+    count is set to 0 just before the steps and read just after.  Returns
+    the launches."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1293,14 +1346,15 @@ def family_train(kernels, name, layers, grad_sync, per_step) -> dict:
     from repro_torch.train import TrainConfig, init_train_state, make_train_step
     from repro_torch.tree import leaves
 
+    name = ft.name
     arch = get_config(name)
-    if layers is not None:
-        arch = arch.variant(n_layers=layers)
-    tcfg = TrainConfig(microbatches=1, remat="none", grad_sync=grad_sync)
+    if ft.layers is not None:
+        arch = arch.variant(n_layers=ft.layers)
+    tcfg = TrainConfig(microbatches=1, remat=ft.remat, grad_sync=ft.grad_sync)
     t0 = time.monotonic()
     state = init_train_state(torch.Generator(device="cuda").manual_seed(0), arch, tcfg)
     step_fn = make_train_step(arch, OptHParams(lr_peak=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL), tcfg)
-    batch = train_batch(arch, 0)
+    batch = train_batch(arch, 0, ft.seq)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(state["params"]))
     print(f"{name} train: {arch.n_layers} layers, {n_params} params ({arch.dtype}), state built in {time.monotonic() - t0} s")
@@ -1308,6 +1362,7 @@ def family_train(kernels, name, layers, grad_sync, per_step) -> dict:
         fn.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    tokens = TRAIN_B * ft.seq
     losses, walls, steps = [], [], []
     for i in range(FAMILY_TRAIN_STEPS):
         before, t0 = {k: fn.launches for k, fn in kernels.items()}, time.monotonic()
@@ -1316,21 +1371,117 @@ def family_train(kernels, name, layers, grad_sync, per_step) -> dict:
         walls.append(time.monotonic() - t0)
         steps.append({k: fn.launches - before[k] for k, fn in kernels.items()})
         print(f"{name} train step {i}: loss={losses[-1]} aux={float(met['aux'])} grad_norm={float(met['grad_norm'])} "
-              f"wall={walls[-1]} s tokens/s={TRAIN_B * TRAIN_S / walls[-1]} "
+              f"wall={walls[-1]} s tokens/s={tokens / walls[-1]} "
               + " ".join(f"{k}.launches={n}" for k, n in steps[-1].items()))
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     med = sorted(walls[1:])[len(walls[1:]) // 2]
-    print(f"{name} train: {FAMILY_TRAIN_STEPS} steps B={TRAIN_B} S={TRAIN_S} {arch.n_layers} layers {grad_sync} remat=none: "
-          f"loss {losses[0]} -> {losses[-1]}; median step (after the first) {med} s, {TRAIN_B * TRAIN_S / med} tokens/s; "
+    extra = (f" + {arch.encoder_seq} frames through {arch.encoder_layers} encoder layers" if arch.is_encdec else "") + (
+        f" after a {arch.n_prefix_tokens}-token prefix" if "prefix" in batch else "")
+    print(f"{name} train: {FAMILY_TRAIN_STEPS} steps B={TRAIN_B} S={ft.seq}{extra} {arch.n_layers} layers "
+          f"{ft.grad_sync} remat={ft.remat} gate layers={ft.gate_layers}: loss {losses[0]} -> {losses[-1]}; "
+          f"median step (after the first) {med} s, {tokens / med} tokens/s; "
           f"first step {walls[0]} s; peak memory {peak / 2**30} GiB")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         fail(f"{name}: the loss did not fall over {FAMILY_TRAIN_STEPS} steps on a fixed batch: {losses}")
-    if any(n != per_step for n in steps):
-        fail(f"{name}: launches a step {steps}, want {per_step}")
+    if any(n != ft.per_step for n in steps):
+        fail(f"{name}: launches a step {steps}, want {ft.per_step}")
     del state
     torch.cuda.empty_cache()
+    return launches
+
+
+def restart_path(kernels) -> dict:
+    """Phase 5c: checkpoint/restart on the card.  ``Trainer`` runs
+    RESTART_ARCH at full depth with int8_ef for RESTART_EVERY steps with a
+    checkpoint directory (asynchronous saves through its executor: every
+    RESTART_EVERY steps, then once more at the end, waited for); a second
+    ``Trainer`` on the same directory must restore that step, bit for bit
+    the state the first one saved, and run the rest of RESTART_STEPS; a
+    third runs all RESTART_STEPS with no checkpoint.  The resumed losses
+    must equal the uninterrupted run's bit for bit (whether the first run's
+    equal it over the same steps is printed: it tells a lost restore from
+    a card that does not repeat a run).  Every
+    kernel's count is set to 0 just before the first run and read just
+    after the third: the SSD kernel once a layer a step.  Returns the
+    launches."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import OptHParams
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    arch = get_config(RESTART_ARCH)
+    tcfg = TrainConfig(microbatches=1, remat="none", grad_sync="int8_ef")
+    hp = OptHParams(lr_peak=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL)
+
+    def trainer(steps, ckpt_dir):
+        run = TrainerConfig(batch=TRAIN_B, seq=TRAIN_S, steps=steps, ckpt_every=RESTART_EVERY, ckpt_dir=ckpt_dir,
+                            log_every=RESTART_STEPS)
+        return Trainer(arch, hp, tcfg, run, device="cuda")
+
+    def timed(fn, walls):
+        def call(*args, **kwargs):
+            t0 = time.monotonic()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+            return out
+        return call
+
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    save_walls, restore_walls, restored_equal = [], [], []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        first = trainer(RESTART_EVERY, ckpt_dir)
+        first.ckpt.save = timed(first.ckpt.save, save_walls)
+        first.train()
+        saved = first.state
+        files = list((Path(ckpt_dir) / f"step_{RESTART_EVERY}").iterdir())
+        n_bytes = sum(f.stat().st_size for f in files)
+        resumed = trainer(RESTART_STEPS, ckpt_dir)
+        restore = timed(resumed.ckpt.restore, restore_walls)
+
+        def checked_restore(like, step=None):
+            out = restore(like, step)
+            restored_equal.append(_bits_equal(out[0], saved))
+            return out
+
+        resumed.ckpt.restore = checked_restore
+        resumed.train()
+        kept = resumed.ckpt.available_steps()
+    del saved
+    first.state = resumed.state = None
+    torch.cuda.empty_cache()
+    whole = trainer(RESTART_STEPS, None)
+    whole.train()
+    whole.state = None
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    torch.cuda.empty_cache()
+    loss = lambda t: [r["loss"] for r in t.metrics_log]  # noqa: E731
+    run1, res, ref = loss(first), loss(resumed), loss(whole)
+    repeats = run1 == ref[:RESTART_EVERY]
+    print(f"{RESTART_ARCH} restart ({arch.n_layers} layers, int8_ef, B={TRAIN_B} S={TRAIN_S}): saved step {RESTART_EVERY}, "
+          f"{n_bytes} bytes in {len(files)} files; save calls {save_walls} s (asynchronous at step {RESTART_EVERY}, "
+          f"then the final save, waited for); restored step {resumed.start_step} in {restore_walls} s, the state bit "
+          f"for bit the saved one: {restored_equal}; kept steps {kept}; losses: run 1 {run1}, resumed {res}, "
+          f"uninterrupted {ref}; run 1 repeats the uninterrupted run bit for bit: {repeats}; "
+          + " ".join(f"{k}.launches={n}" for k, n in launches.items()))
+    if restored_equal != [True] or resumed.start_step != RESTART_EVERY:
+        fail(f"{RESTART_ARCH}: the resumed Trainer restored step {resumed.start_step}, bit for bit: {restored_equal}")
+    if [r["step"] for r in resumed.metrics_log] != list(range(RESTART_EVERY, RESTART_STEPS)):
+        fail(f"{RESTART_ARCH}: the resumed Trainer ran steps {[r['step'] for r in resumed.metrics_log]}")
+    if not all(math.isfinite(x) for x in ref) or res != ref[RESTART_EVERY:]:
+        fail(f"{RESTART_ARCH}: the resumed losses {res} differ from the uninterrupted run's {ref[RESTART_EVERY:]}")
+    want = dict(NO_LAUNCH, ssd_chunk_kernel=arch.n_layers * 2 * RESTART_STEPS)  # 3 + 3 resumed + 6 uninterrupted
+    if launches != want:
+        fail(f"{RESTART_ARCH} restart: launches {launches}, want {want}")
     return launches
 
 
@@ -1383,32 +1534,83 @@ ENCDEC_ROWS, ENCDEC_PROMPT, ENCDEC_STEPS = 8, 128, 32
 VLM_TEXT, PREFIX_STEPS = 768, 3
 FAMILY_PROMPTS = {"llama4-scout-17b-a16e": (1024, 9216)}
 
+class FamilyTrain(NamedTuple):
+    """One phase-5b train (see FAMILY_TRAINS)."""
+
+    name: str
+    layers: Optional[int]  # the first layers on the card; None: all
+    grad_sync: str
+    remat: str
+    seq: int
+    gate_layers: int
+    per_step: dict  # the launches each kernel must make a step
+    f32_cap: float  # the cap of the gate's bf16 kernel run's distance from f32
+
+
 # Phase 5b, the other families' trains, each at full width, bf16, B=4,
-# S=1024, FAMILY_TRAIN_STEPS steps on one fixed batch from seed 0: (model,
-# layers (None: all), grad sync, the launches each kernel must make a step,
-# the cap of the gate's bf16 distance from f32).  A step launches the SSD
-# kernel once an SSM layer (38 for zamba2), flash once an attention layer
-# (zamba2's shared block at layers 0, 6, ..., 36: 7) and the grouped matmul
-# three times a MoE layer, all in the forward (the backwards are PyTorch
-# ops).  deepseek-moe-16b is cut to 4 of its 28 layers: 2.77 B parameters,
-# whose bf16 weights and gradients and f32 AdamW moments take ~33 GB before
-# activations; an EF tree and the f32 compressed gradients would add ~22
-# GB, so its grad sync stays the default.  The gate runs each model's first
-# TRAIN_GATE_LAYERS layers (zamba2's shared block fires at layer 0): the
-# f32 kernel run against the f32 plain run within FAMILY_F32_TOL of max
-# |grad| and of the loss (the SSD and grouped-matmul contracts' own 1e-4),
-# and the bf16 runs against the f32 plain run, the kernel run no farther
-# than the plain run by more than F32_MARGIN and under the model's cap:
-# about twice the plain run's distance as read on an H100 (PERF.md, PR 17
-# run A), 0.287% of max |grad| for mamba2, 0.513% for zamba2 and 1.09%
-# for deepseek (the kernel runs read 0.340%, 0.518% and 0.955%).
+# FAMILY_TRAIN_STEPS steps on one fixed batch from seed 0.  A step launches
+# the SSD kernel once an SSM layer (38 for zamba2), flash once a
+# self-attention layer (zamba2's shared block at layers 0, 6, ..., 36: 7;
+# whisper's 32 encoder and 32 decoder layers: 64; none for MLA) and the
+# grouped matmul three times a MoE layer, all in the forward (the
+# backwards are PyTorch ops; under remat="full" a recompute would launch
+# again, but minicpm3, the one remat train, has no kernel).  A train state
+# takes 12 B a parameter (bf16 weights and gradients, f32 AdamW moments),
+# int8_ef 8 B more (the f32 EF tree and compressed gradients); the cuts
+# (PERF.md, section 4):
+# - deepseek-moe-16b on 4 of 28 layers, 2.77 B parameters, ~33 GB, default
+#   grad sync (EF would add ~22 GB);
+# - minicpm3-4b at all 62 layers, 4.07 B, 48.9 GB, default grad sync
+#   (int8_ef would add 32.6 GB), remat="full": MLA's plain (B, H, S, S) f32
+#   scores are 671 MB a layer, kept with their softmax over 62 layers they
+#   pass 80 GB; under "full" a layer's input (21 MB) is kept;
+# - whisper-large-v3 at all 32 + 32 layers, 1.60 B, int8_ef (32 GB), at
+#   S=448, Whisper's published decoder context, over 1500 frames: the plain
+#   cross-attention keeps B*H*S*1500 f32 scores and probabilities, 215 MB
+#   each a layer;
+# - internvl2-76b on 2 of 80 layers, 3.81 B (2.10 B of them embeddings),
+#   45.8 GB, a 256-token prefix before 1024 tokens of text;
+# - llama4-scout-17b-a16e on 1 of 48 layers (layer 0, chunked; at S=1024 <
+#   8192 a chunked and a global layer apply the same mask), 4.27 B, 51.2
+#   GB; two layers would take 77.6 GB before activations.
+# The gate runs each model's first gate_layers layers (zamba2's shared
+# block fires at layer 0; whisper's encoder cut alike), TRAIN_GATE_LAYERS
+# or, where 18 B a parameter would not fit beside the activations,
+# internvl2's and llama4's 1: the f32 kernel run against the f32 plain run
+# within FAMILY_F32_TOL of max |grad| and of the loss (the SSD and
+# grouped-matmul contracts' own 1e-4), and the bf16 runs against the f32
+# plain run, the kernel run no farther than the plain run by more than
+# F32_MARGIN and under the model's cap: about twice the plain run's
+# distance as read on an H100 80GB HBM3 at 700 W (PERF.md): 0.287% of max
+# |grad| for mamba2, 0.513% for zamba2, 1.09% for deepseek, 0.243% for
+# minicpm3, 0.424% for whisper, 0.438% for internvl2 and 0.584% for llama4
+# (the kernel runs read 0.340%, 0.518%, 0.955%, 0.243%, 0.424%, 0.500% and
+# 0.574%).
 FAMILY_TRAIN_STEPS = 8
 FAMILY_F32_TOL = 1e-4
 FAMILY_TRAINS = [
-    ("mamba2-130m", None, "int8_ef", dict(NO_LAUNCH, ssd_chunk_kernel=24), 6e-3),
-    ("zamba2-1.2b", None, "int8_ef", dict(NO_LAUNCH, ssd_chunk_kernel=38, flash_attention=7), 1.0e-2),
-    ("deepseek-moe-16b", 4, "auto", dict(NO_LAUNCH, flash_attention=4, grouped_matmul=12), 2.2e-2),
+    FamilyTrain("mamba2-130m", None, "int8_ef", "none", TRAIN_S, TRAIN_GATE_LAYERS,
+                dict(NO_LAUNCH, ssd_chunk_kernel=24), 6e-3),
+    FamilyTrain("zamba2-1.2b", None, "int8_ef", "none", TRAIN_S, TRAIN_GATE_LAYERS,
+                dict(NO_LAUNCH, ssd_chunk_kernel=38, flash_attention=7), 1.0e-2),
+    FamilyTrain("deepseek-moe-16b", 4, "auto", "none", TRAIN_S, TRAIN_GATE_LAYERS,
+                dict(NO_LAUNCH, flash_attention=4, grouped_matmul=12), 2.2e-2),
+    FamilyTrain("minicpm3-4b", None, "auto", "full", TRAIN_S, TRAIN_GATE_LAYERS, NO_LAUNCH, 5e-3),
+    FamilyTrain("whisper-large-v3", None, "int8_ef", "none", 448, TRAIN_GATE_LAYERS,
+                dict(NO_LAUNCH, flash_attention=64), 9e-3),
+    FamilyTrain("internvl2-76b", 2, "auto", "none", TRAIN_S, 1, dict(NO_LAUNCH, flash_attention=2), 9e-3),
+    FamilyTrain("llama4-scout-17b-a16e", 1, "auto", "none", TRAIN_S, 1,
+                dict(NO_LAUNCH, flash_attention=1, grouped_matmul=3), 1.2e-2),
 ]
+
+# Phase 5c, restart on the card: mamba2-130m at full depth with int8_ef (a
+# state of ~1.8 GB; every step launches the SSD kernel inside SSDChunkFn),
+# B=4, S=1024, the SyntheticLM stream of seed 0: 3 steps and a checkpoint,
+# then a resumed run to 6, then 6 steps uninterrupted.  An H100 repeats a
+# run of this train bit for bit (PERF.md), so the resumed losses are held
+# to the uninterrupted run's bit for bit.
+RESTART_ARCH = "mamba2-130m"
+RESTART_EVERY, RESTART_STEPS = 3, 6
 
 
 def main() -> int:
@@ -1499,9 +1701,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5b. the other families' trains: the gate, then the steps -----------------
-    for name, layers, grad_sync, per_step, f32_cap in FAMILY_TRAINS:
-        family_train_gate(ops, name, f32_cap)
-        by_path[f"{name} train"] = family_train(kernels, name, layers, grad_sync, per_step)
+    for ft in FAMILY_TRAINS:
+        family_train_gate(ops, ft)
+        by_path[f"{ft.name} train"] = family_train(kernels, ft)
+
+    # 5c. checkpoint/restart: save, resume, and the uninterrupted run --------
+    by_path[f"{RESTART_ARCH} restart"] = restart_path(kernels)
     print(f"grouped_matmul copies of a non-contiguous operand on the main paths: {grouped_matmul.copies}")
     if grouped_matmul.copies:
         fail(f"the main paths handed the grouped matmul {grouped_matmul.copies} operands to copy contiguous")

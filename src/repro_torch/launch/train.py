@@ -4,7 +4,10 @@ Port of ``repro/launch/train.py``: runs a (smoke, or with ``--full`` the
 published) config end to end through the trainer — executor-prefetched
 data, the train step, AdamW.  Runs on ``cuda`` unless ``--device cpu`` is
 given; without a card it raises.  Weights are random, from a
-``torch.Generator`` seeded with 0.  ``--ckpt-dir`` (checkpointing) and
+``torch.Generator`` seeded with 0.  ``--ckpt-dir`` saves the train state
+every ``--ckpt-every`` steps and at the end, and a run started on a
+directory that holds a checkpoint resumes from its latest step (the
+reference's format: a JAX run's checkpoint resumes here, and back).
 ``--production`` / ``--multi-pod`` (sharding) are not ported yet and raise.
 """
 from __future__ import annotations

@@ -3,14 +3,21 @@
 Port of ``repro/train/trainer.py``:
 
 * the **AMT executor** (paper runtime) builds the data batches ahead of
-  the step; the loop pumps ``executor.progress()`` once per step — the
-  parcelport ``background_work`` contract (paper Listing 2);
+  the step and writes the checkpoint leaves; the loop pumps
+  ``executor.progress()`` once per step — the parcelport
+  ``background_work`` contract (paper Listing 2);
+* **checkpoint/restart** (``ckpt_dir``): the latest step on disk is
+  restored into the freshly built state, in place, and the data stream
+  resumes at that step (batch ``i`` is a pure function of the seed and
+  ``i``); the state is saved every ``ckpt_every`` steps (asynchronously:
+  the host copy is taken before ``save`` returns) and once more at the end,
+  waited for.  The format is the reference's, so a run of either package
+  resumes in the other;
 * **step-time watchdog**: flags straggler steps and records them.
 
 The train step updates the state in place (see
 :mod:`repro_torch.train.step`), where the reference's ``jit`` donates it,
 so a full-width run holds one copy of the optimizer state.
-Checkpoint/restart (``ckpt_dir``) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from ..checkpoint import CheckpointManager
 from ..configs.base import ArchConfig
 from ..core.executor import AMTExecutor
 from ..data import PrefetchingLoader, SyntheticLM
@@ -53,8 +61,6 @@ class Trainer:
         executor: Optional[AMTExecutor] = None,
         device: Union[str, torch.device, None] = "cuda",
     ):
-        if run.ckpt_dir:
-            raise NotImplementedError("checkpoint/restart is not ported yet (ROADMAP.md, queue A, item 5)")
         self.arch = arch
         self.hp = hp
         self.tcfg = tcfg
@@ -63,6 +69,8 @@ class Trainer:
         self.executor = executor or AMTExecutor(n_workers=2)
         self._own_executor = executor is None
         self.step_fn = make_train_step(arch, hp, tcfg)
+        self.ckpt = CheckpointManager(run.ckpt_dir, executor=self.executor) if run.ckpt_dir else None
+        self.start_step = 0
         self.state: Optional[TrainState] = None
         self.metrics_log: List[Dict[str, float]] = []
         self.straggler_steps: List[int] = []
@@ -88,10 +96,15 @@ class Trainer:
         rc = self.run_cfg
         gen = torch.Generator(device=self.device).manual_seed(rc.seed)
         state = self.state = init_train_state(gen, self.arch, self.tcfg)
+        start_step = 0
+        if self.ckpt is not None and self.ckpt.latest_step() is not None:
+            state, start_step = self.ckpt.restore(state)  # the latest step, into the built state in place
+            print(f"restored step {start_step} from {self.ckpt.dir}", flush=True)
+        self.start_step = start_step
         source = SyntheticLM(self.arch, rc.batch, rc.seq, seed=rc.seed)
-        loader = PrefetchingLoader(source, self.executor, depth=4)
+        loader = PrefetchingLoader(source, self.executor, depth=4, start_index=start_step)
         times: List[float] = []
-        for step in range(rc.steps):
+        for step in range(start_step, rc.steps):
             batch = self._to_device(loader.next())
             t0 = time.monotonic()
             state, metrics = self.step_fn(state, batch)
@@ -109,8 +122,12 @@ class Trainer:
                     f"lr={rec.get('lr', 0):.2e} {dt*1e3:.0f}ms",
                     flush=True,
                 )
+            if self.ckpt is not None and (step + 1) % rc.ckpt_every == 0:
+                self.ckpt.save(state, step + 1)
             # paper Listing 2 contract: pump host-side background work
             self.executor.progress()
+        if self.ckpt is not None:
+            self.ckpt.save(state, rc.steps, wait=True)
         return {
             "final_loss": self.metrics_log[-1].get("loss") if self.metrics_log else None,
             "steps": len(self.metrics_log),

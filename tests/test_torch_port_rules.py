@@ -26,7 +26,8 @@
 * Cross-attention (queries and keys of different lengths) takes the plain
   path and launches nothing; the MLA, encoder-decoder, VLM and llama4
   smokes launch each kernel exactly as often as their layers say, prefill
-  and decode (``gpu``-marked)."""
+  and decode, and in a train step under each remat mode, with the
+  gradients of ``remat="none"`` (``gpu``-marked)."""
 import ast
 import math
 from pathlib import Path
@@ -71,9 +72,10 @@ def test_port_files_exist():
                 "src/repro_torch/core/executor.py", "src/repro_torch/core/worker.py",
                 "src/repro_torch/data/pipeline.py", "src/repro_torch/optim/adamw.py",
                 "src/repro_torch/train/grad_sync.py", "src/repro_torch/train/step.py",
-                "src/repro_torch/train/trainer.py", "src/repro_torch/launch/train.py", "chip_smoke.py"):
+                "src/repro_torch/train/trainer.py", "src/repro_torch/launch/train.py",
+                "src/repro_torch/checkpoint/manager.py", "src/repro_torch/checkpoint/snapshot.py", "chip_smoke.py"):
         assert rel in names
-    for test in ("test_torch_train.py", "test_torch_train_families.py"):  # the trains' CPU parity with JAX
+    for test in ("test_torch_train.py", "test_torch_train_families.py", "test_torch_checkpoint.py"):  # CPU parity with JAX
         assert (REPO / "tests" / test).is_file()
     for cu in ("flash_attention", "ssd_scan", "moe_gmm", "grad_pack"):
         assert (REPO / "src" / "repro_torch" / "kernels" / "csrc" / f"{cu}.cu").is_file()
@@ -817,3 +819,50 @@ def test_cuda_new_families_launch_their_kernels(arch):
     for a, b in zip(lk, lpl):
         assert torch.isfinite(a).all()
         assert (a.float() - b.float()).abs().max().item() <= 5e-2 * b.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "whisper-large-v3", "internvl2-76b", "llama4-scout-17b-a16e"])
+def test_cuda_remat_modes_relaunch_the_kernels_and_keep_the_gradients(arch):
+    """A bf16 smoke train step of the MLA, encoder-decoder, VLM and llama4
+    families on the card under ``remat="full"`` and ``"dots"``: every
+    decoder layer's kernels launch twice (the forward and the recompute: flash once a self-attention
+    layer, the grouped matmul three times a MoE layer; MLA none), the
+    encoder's once (it is not rematerialised, as in the reference); the
+    loss and every gradient leaf within the bf16 tolerance (5e-2 of the
+    largest |grad|, as flash's test) of ``remat="none"``'s.  The chip
+    smoke's one remat train (minicpm3) launches no kernel, so this test
+    pins remat on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import grouped_matmul
+    from repro_torch.train import init_train_state
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import leaves
+
+    cfg = SMOKES[arch]
+    params = init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg)["params"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.frontend == "vision":
+        batch["prefix"] = torch.randn((2, cfg.n_prefix_tokens, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    dec_flash = 0 if cfg.attn_kind == "mla" else cfg.n_layers
+    gmm = 3 * cfg.n_layers if cfg.is_moe else 0
+    runs = {}
+    for remat, times in (("none", 1), ("full", 2), ("dots", 2)):
+        before = (flash_attention.launches, grouped_matmul.launches)
+        runs[remat] = loss_and_grads(params, cfg, batch, remat)
+        torch.cuda.synchronize()
+        got = (flash_attention.launches - before[0], grouped_matmul.launches - before[1])
+        assert got == (times * dec_flash + cfg.encoder_layers, times * gmm), remat
+    (l0, _), g0 = runs["none"]
+    gmax = max(g.float().abs().max().item() for g in leaves(g0))
+    for remat in ("full", "dots"):
+        (l1, _), g1 = runs[remat]
+        assert abs(l1.item() - l0.item()) <= 5e-2 * max(1.0, abs(l0.item())), remat
+        for a, b in zip(leaves(g1), leaves(g0)):
+            assert torch.isfinite(a).all() and (a.float() - b.float()).abs().max().item() <= 5e-2 * gmax, remat

@@ -248,7 +248,7 @@ def test_train_state_from_jax_carries_every_leaf(cfgs):
         train_state_from_jax({"params": {}}, "cpu")
 
 
-def test_trainer_runs_three_steps_on_the_cpu():
+def test_trainer_runs_three_steps_on_the_cpu(tmp_path):
     arch = SMOKES[ARCH]
     trainer = Trainer(arch, OptHParams(lr_peak=1e-2, warmup_steps=1, total_steps=3),
                       TrainConfig(microbatches=1, remat="none", grad_sync="int8_ef"),
@@ -258,8 +258,9 @@ def test_trainer_runs_three_steps_on_the_cpu():
     assert [r["step"] for r in trainer.metrics_log] == [0, 1, 2]
     assert int(trainer.state["step"]) == 3 and "ef" in trainer.state
     assert not any(t.is_alive() for t in trainer.executor._threads)
-    with pytest.raises(NotImplementedError):
-        Trainer(arch, OptHParams(), run=TrainerConfig(ckpt_dir="ckpt"), device="cpu")
+    with_ckpt = Trainer(arch, OptHParams(), run=TrainerConfig(ckpt_dir=str(tmp_path)), device="cpu")
+    assert with_ckpt.ckpt.dir == tmp_path and trainer.ckpt is None  # checkpoint/restart: tests/test_torch_checkpoint.py
+    with_ckpt.executor.shutdown()
 
 
 def test_launcher_trains_on_the_cpu_when_asked(capsys):

@@ -1,17 +1,20 @@
 """Port parity: the train paths of the SSM (``mamba2-130m``), hybrid
-(``zamba2-1.2b``) and MoE (``deepseek-moe-16b``) families against the JAX
+(``zamba2-1.2b``), MoE (``deepseek-moe-16b``), MLA (``minicpm3-4b``),
+encoder-decoder (``whisper-large-v3``), VLM (``internvl2-76b``) and
+chunked-local MoE (``llama4-scout-17b-a16e``) families against the JAX
 package, on their f32 smoke configs with JAX-made parameters and states
-carried across by ``repro_torch.bridge``; batches are made with numpy from
-a seed.
+carried across by ``repro_torch.bridge``; batches (tokens, and the VLM's
+``prefix`` or the encoder's ``frames`` stubs) are made with numpy from a
+seed.
 
 Tolerances, those of ``tests/test_torch_train.py`` (which says why):
 
 * ``loss_and_grads`` against ``jax.value_and_grad(loss_fn)``: loss within
   1e-5; every gradient leaf within 1e-4 of the largest |grad|.
-* deepseek: the router's aux loss within 1e-6, and every MoE layer's
+* the MoE models: the router's aux loss within 1e-6, and every MoE layer's
   expert choices identical (recorded in both packages in layer order).
 * 3 steps of ``make_train_step`` (one microbatch, no remat): loss within
-  1e-5; parameters within 0.2 · lr_peak; moments within 2e-6, or under
+  1e-5 (minicpm3: 5e-5, see ``LOSS_TOL``); parameters within 0.2 · lr_peak; moments within 2e-6, or under
   ``int8_ef`` EF per leaf within 2.5 × its max |EF| at few elements (one
   bucket's move is about twice the leaf's max |EF|).  An element counts as
   moved when it differs by more than 1% of its leaf's max |EF| (at least
@@ -51,8 +54,14 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.tree import leaves
 
 torch.set_num_threads(1)
-ARCHS = ["mamba2-130m", "zamba2-1.2b", "deepseek-moe-16b"]
+ARCHS = ["mamba2-130m", "zamba2-1.2b", "deepseek-moe-16b", "minicpm3-4b", "whisper-large-v3", "internvl2-76b",
+         "llama4-scout-17b-a16e"]
 LR = 1e-2
+# The step loss's tolerance: 1e-5 was set for losses near 5.9 (f32 sums
+# over 128 tokens in another order).  minicpm3's smoke (MLA, tied
+# embeddings) starts at 45.9 and is 14.9 at the third step, where the same
+# relative noise reads 2.9e-5 (measured); held at 5e-5.
+LOSS_TOL = {"minicpm3-4b": 5e-5}
 
 
 @pytest.fixture(autouse=True)
@@ -70,10 +79,20 @@ def _max_err(j_tree, t_tree) -> float:
     return max(float(np.max(np.abs(np.asarray(a, np.float32) - b.float().numpy()), initial=0.0)) for a, b in zip(jl, tl))
 
 
-def _batch(vocab, seed=0, b=4, s=32):
-    toks = np.random.default_rng(seed).integers(0, vocab, (b, s + 1)).astype(np.int32)
+def _batch(cfg, seed=0, b=4, s=32):
+    """(JAX batch, port batch): tokens and next-token labels, and the
+    family's f32 stub inputs (``prefix`` or ``frames``)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
     jb = {"tokens": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:])}
     tb = {"tokens": torch.from_numpy(toks[:, :-1]).long(), "labels": torch.from_numpy(toks[:, 1:]).long()}
+    stubs = {}
+    if cfg.frontend == "vision":
+        stubs["prefix"] = rng.standard_normal((b, cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        stubs["frames"] = rng.standard_normal((b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    for k, v in stubs.items():
+        jb[k], tb[k] = jnp.asarray(v), torch.from_numpy(v)
     return jb, tb
 
 
@@ -86,7 +105,7 @@ def test_loss_and_grads_match(arch, monkeypatch):
     jcfg, tcfg = _cfgs(arch)
     jp = j_init_state(jax.random.PRNGKey(0), jcfg)["params"]
     tp = params_from_jax(_np(jp), "cpu")
-    jb, tb = _batch(jcfg.vocab_size, seed=1)
+    jb, tb = _batch(jcfg, seed=1)
     # each MoE layer's expert choices, in layer order, in both packages
     j_choices, t_choices = [], []
     j_route, t_route = j_moe._route, moe._route
@@ -125,7 +144,7 @@ def test_loss_and_grads_match(arch, monkeypatch):
     assert not any(p.requires_grad for p in leaves(tp))
 
 
-STEP_CASES = [(a, "auto") for a in ARCHS] + [("mamba2-130m", "int8_ef")]
+STEP_CASES = [(a, "auto") for a in ARCHS] + [("mamba2-130m", "int8_ef"), ("whisper-large-v3", "int8_ef")]
 
 
 @pytest.mark.parametrize("arch, grad_sync", STEP_CASES, ids=[f"{a}-{g}" for a, g in STEP_CASES])
@@ -137,7 +156,7 @@ def test_three_train_steps_match(arch, grad_sync):
     ts = train_state_from_jax(_np(js), "cpu")
     assert ("ef" in ts) == (grad_sync == "int8_ef")
     assert _max_err(js, ts) == 0.0  # every leaf carried: SSM, MoE stacks, shared block, EF
-    jb, tb = _batch(jcfg.vocab_size)
+    jb, tb = _batch(jcfg)
     hp = dict(lr_peak=LR, warmup_steps=2, total_steps=20)
     jstep, tstep = jax.jit(j_make_step(jcfg, JHP(**hp), jtc)), make_train_step(tcfg, OptHParams(**hp), ttc)
     losses = []
@@ -145,7 +164,7 @@ def test_three_train_steps_match(arch, grad_sync):
         js, jm = jstep(js, jb)
         ts2, tm = tstep(ts, tb)
         assert ts2 is ts
-        assert abs(float(jm["loss"]) - float(tm["loss"])) <= 1e-5, step
+        assert abs(float(jm["loss"]) - float(tm["loss"])) <= LOSS_TOL.get(arch, 1e-5), step
         assert abs(float(jm["aux"]) - float(tm["aux"])) <= 1e-6, step
         assert _max_err(js["params"], ts["params"]) <= 0.2 * LR, step
         assert int(ts["step"]) == step + 1
@@ -167,7 +186,7 @@ def test_three_train_steps_match(arch, grad_sync):
 def test_grads_equal_across_remat_modes(arch, remat):
     _, tcfg = _cfgs(arch)
     params = init_train_state(torch.Generator().manual_seed(0), tcfg)["params"]
-    _, tb = _batch(tcfg.vocab_size, seed=3)
+    _, tb = _batch(tcfg, seed=3)
     (l0, m0), g0 = loss_and_grads(params, tcfg, tb, "none")
     (l1, m1), g1 = loss_and_grads(params, tcfg, tb, remat)
     assert float(l0) == float(l1) and float(m0["aux"]) == float(m1["aux"])
