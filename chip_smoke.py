@@ -45,6 +45,18 @@ nothing of the JAX package.  In order, it:
    S=1024 and S=9216); the f32 comparison of every model but deepseek
    converts its weights in place, one leaf at a time, and back (bf16 ->
    f32 -> bf16 is exact): llama4's f32 copy has no room beside them;
+4c. the fleet: for ``tinyllama-1.1b`` (over the collective transport) and
+   ``mamba2-130m`` (over the shared-memory transport, responses by
+   one-sided puts), rows of ``decode_step`` at batch 1, 2, 4 and 8 must be
+   bit-identical; then phase 4's 16 requests go through a single-host
+   ``InferenceServer`` of 8 slots, a ``Fleet`` of 2 workers × 4 slots, and
+   the same fleet with worker 0 leaving mid-decode (its slots handed off
+   as snapshot bytes) and a worker joining: every stream must equal the
+   single host's, and the kernels must launch once a prefill of 16; it
+   also times a 4-row ``decode_step`` (one padded tile) against an 8-row
+   one;
+   (after phase 5's exchange) the same two-rank DP exchange over
+   ``CommChannel(stage="device")``, the wires bit for bit;
 5. trains ``tinyllama-1.1b``: first the train step's loss and gradients
    through the kernels against the plain path (full width, its first
    layers, f32 and bf16); then the full model in bf16 with int8 error
@@ -95,6 +107,7 @@ checkout, and on any failed check.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -251,14 +264,22 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    if not us > 0:
-        fail("torch.profiler saw no device time: device times not measured")
-    return us / 1e3 / iters
+    # a session now and then comes back with no kernel records (seen on the
+    # card, at a different call each run): trace again, up to PROFILE_TRIES
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            if attempt > 1:
+                print(f"torch.profiler: device time seen on attempt {attempt}")
+            return us / 1e3 / iters
+    fail(f"torch.profiler saw no device time in {PROFILE_TRIES} sessions: device times not measured")
+
+
+PROFILE_TRIES = 3
 
 
 def host_us(fn, iters: int = 200, warmup: int = 5) -> float:
@@ -757,6 +778,7 @@ def serve_path(arch, params, prompt, first_tok, kernels, per_prefill, per_step) 
     rng = torch.Generator().manual_seed(1)
     prompts = [torch.randint(0, arch.vocab_size, (n,), generator=rng).tolist() for n in PROMPT_LENS]
     prompts[-1] = prompt[0].tolist()  # the phase-3 prompt: its first token is known
+    SERVED_PROMPTS[arch.name] = prompts  # phase 4c serves them again
     reqs, lock = [None] * len(prompts), threading.Lock()
 
     def client(idx):
@@ -937,6 +959,163 @@ def family_path(name, layers, per_prefill, per_step, f32_cap, ops, kernels, gen)
     del params
     torch.cuda.empty_cache()
     return paths
+
+
+def batch_invariance(arch, params) -> None:
+    """Phase 4c: rows of ``decode_step`` at batch 1, 2, 4 and 8 for
+    INVARIANCE_STEPS greedy steps from the same tokens at position 0; every
+    row must be bit-identical to the same row at batch 8 (the reference's
+    test, tests/test_fleet.py, at full width on the card)."""
+    import torch
+
+    from repro_torch.models import decode_step, init_cache
+
+    start = torch.randint(0, arch.vocab_size, (max(INVARIANCE_BATCHES), 1),
+                          generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    runs = {}
+    with torch.inference_mode():
+        for b in INVARIANCE_BATCHES:
+            cache = init_cache(arch, b, 2048, "cuda")
+            toks, pos, out = start[:b].clone(), torch.zeros(b, dtype=torch.long, device="cuda"), []
+            for _ in range(INVARIANCE_STEPS):
+                logits, cache = decode_step(params, arch, toks, pos, cache)
+                out.append(logits[:, 0].float())
+                toks, pos = logits[:, 0].argmax(-1)[:, None], pos + 1
+            runs[b] = torch.stack(out, 1)  # (b, steps, V)
+            del cache
+    ref = runs[max(INVARIANCE_BATCHES)]
+    diffs = {b: float((runs[b] - ref[:b]).abs().max()) for b in INVARIANCE_BATCHES}
+    same = {b: bool(torch.equal(runs[b], ref[:b])) for b in INVARIANCE_BATCHES}
+    print(f"{arch.name} decode rows vs batch {max(INVARIANCE_BATCHES)}, {INVARIANCE_STEPS} steps: "
+          f"bit-identical {same}, max |logit difference| {diffs}")
+    if not all(same.values()):
+        fail(f"{arch.name}: decode_step rows depend on the batch size: {diffs}")
+    # what the tile's padding costs a fleet worker's 4-row step (its cache
+    # rows copied out to an 8-row tile and back) against an 8-row step
+    wall, dev = {}, {}
+    with torch.inference_mode():
+        for b in (4, 8):
+            cache = init_cache(arch, b, 2048, "cuda")
+            toks, pos = start[:b], torch.full((b,), 100, dtype=torch.long, device="cuda")
+            wall[b] = cuda_ms(lambda: decode_step(params, arch, toks, pos, cache), iters=20)
+            dev[b] = device_ms(lambda: decode_step(params, arch, toks, pos, cache), iters=10)
+            del cache
+    print(f"{arch.name} decode_step at batch 4 (one padded tile, its cache rows copied out and back) vs 8: "
+          f"wall {wall[4]} vs {wall[8]} ms, device {dev[4]} vs {dev[8]} ms")
+
+
+def fleet_run(arch, params, transport, limits, prompts, kernels, churn: bool):
+    """Phase 4c: the 16 requests through Fleet(workers=FLEET_WORKERS,
+    slots=FLEET_SLOTS, max_workers=FLEET_MAX_WORKERS), all submitted at
+    once; with ``churn`` worker 0 leaves once FLEET_LEAVE_AT of the tokens
+    are out (its slots handed off as snapshot bytes), then a worker joins.
+    Every kernel's count is set to 0 just before and read just after.
+    Returns (streams, launches, the fleet's counters)."""
+    import torch
+
+    from repro_torch.serve import Fleet, FleetConfig
+
+    fleet = Fleet(arch, params, FleetConfig(
+        workers=FLEET_WORKERS, slots=FLEET_SLOTS, context=2048, max_prefill=1024, transport=transport,
+        max_workers=FLEET_MAX_WORKERS, limits=limits))
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    reqs = [fleet.submit(p, max_new=MAX_NEW) for p in prompts]
+    leave_s, moved_while_leaving = None, None
+    if churn:
+        for _ in range(10_000):
+            fleet.step()
+            if fleet.tokens_out >= FLEET_LEAVE_AT * len(prompts) * MAX_NEW and fleet.workers[0].core.active_slots():
+                break
+        moved_while_leaving = len(fleet.workers[0].core.active_slots())
+        t1 = time.monotonic()
+        fleet.leave_worker(0)
+        leave_s = time.monotonic() - t1
+        fleet.add_worker()
+    fleet.run_until_idle()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    done = [r for r in reqs if r.done_event.is_set()]
+    ttft = sorted(r.first_token_at - r.submitted_at for r in done)
+    stats = {
+        "served": len(done), "wall": dt, "tokens": fleet.tokens_out, "handoffs": fleet.handoffs,
+        "handoff_bytes": fleet.handoff_bytes, "leave_s": leave_s, "active_at_leave": moved_while_leaving,
+        "eagain": fleet.eagain_events, "joins": fleet.joins, "leaves": fleet.leaves, "steps": fleet.steps,
+        "puts": fleet.group.stats.puts, "ttft_p50": ttft[len(ttft) // 2] if ttft else float("nan"),
+    }
+    streams = [list(r.out_tokens) for r in reqs]
+    fleet.close()
+    return streams, launches, stats
+
+
+def fleet_path(name, transport, per_prefill, kernels) -> dict:
+    """Phase 4c for one model: the batch-invariance reading; the 16 phase-4
+    requests through a single-host InferenceServer(slots=FLEET_SLOTS), the
+    fleet without churn and the fleet with a mid-decode leave and a join,
+    all over ``transport``.  Each request's stream must be bit-identical
+    across the three; the churn run must hand slots off (and, over shmem,
+    respond by one-sided puts); every kernel must launch per_prefill a
+    single-shot prefill, 16 prefills a run.  Returns the launches of both
+    fleet runs by path."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import ResourceLimits
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.serve import InferenceServer, ServeConfig
+    from repro_torch.tree import leaves
+
+    arch = get_config(name)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), arch)
+    batch_invariance(arch, params)
+    # a shared-memory slot must hold a handed-off slot's snapshot (its cache
+    # row and a manifest): the default 64 KiB slots hold token batches only
+    row = sum(t.numel() * t.element_size() for t in leaves(init_cache(arch, 1, 2048, "cuda")))
+    limits = ResourceLimits(bounce_buffer_size=row + (1 << 20), recv_slots=16) if transport == "shmem" else ResourceLimits()
+    print(f"{name}: one slot's cache row {row} bytes; {limits}")
+    prompts = SERVED_PROMPTS[name]
+    server = InferenceServer(arch, params, ServeConfig(
+        slots=FLEET_SLOTS, context=2048, max_prefill=1024, transport=transport))
+    t0 = time.monotonic()
+    reqs = [server.submit(p, max_new=MAX_NEW) for p in prompts]
+    server.run_until_idle()
+    torch.cuda.synchronize()
+    single = [list(r.out_tokens) for r in reqs]
+    print(f"{name} single host ({FLEET_SLOTS} slots, {transport}): wall={time.monotonic() - t0} s "
+          f"served={sum(r.done_event.is_set() for r in reqs)}/{len(prompts)}")
+    out = {}
+    for churn in (False, True):
+        streams, launches, st = fleet_run(arch, params, transport, limits, prompts, kernels, churn)
+        label = f"{name} fleet ({transport}{', leave + join' if churn else ''})"
+        print(f"{label}: workers={FLEET_WORKERS} slots={FLEET_SLOTS} max_workers={FLEET_MAX_WORKERS} "
+              f"requests={st['served']}/{len(prompts)} streams == single host: {streams == single} "
+              f"handoffs={st['handoffs']} bytes a handed-off slot={st['handoff_bytes'] / max(st['handoffs'], 1)} "
+              f"hand-off wall (leave_worker)={st['leave_s']} s active slots at the leave={st['active_at_leave']} "
+              f"joins={st['joins']} leaves={st['leaves']} eagain={st['eagain']} puts={st['puts']} "
+              f"ttft_p50={st['ttft_p50'] * 1e3} ms throughput={st['tokens'] / st['wall']} tok/s wall={st['wall']} s "
+              f"router_steps={st['steps']} "
+              + " ".join(f"{k}.launches={n}" for k, n in launches.items()))
+        if st["served"] != len(prompts):
+            fail(f"{label}: served {st['served']} of {len(prompts)} requests")
+        if streams != single:
+            bad = [i for i, (a, b) in enumerate(zip(streams, single)) if a != b]
+            fail(f"{label}: the streams of requests {bad} differ from the single host's")
+        want = {k: n * len(prompts) for k, n in per_prefill.items()}
+        if launches != want:
+            fail(f"{label}: launches {launches}, want {want} (one prefill a request, none again on adoption)")
+        if churn and not (st["handoffs"] > 0 and st["leaves"] == 1 and st["joins"] == 1):
+            fail(f"{label}: handoffs={st['handoffs']} leaves={st['leaves']} joins={st['joins']}")
+        if transport == "shmem" and not st["puts"] > 0:
+            fail(f"{label}: no response rode a one-sided put (puts={st['puts']})")
+        out[label] = launches
+    del params, server
+    gc.collect()  # a router and its workers form a reference cycle
+    torch.cuda.empty_cache()
+    print(f"{name} fleet phase done: {torch.cuda.memory_allocated()} bytes still allocated on the card")
+    return out
 
 
 # The gradient pack on the reference's cases (tests/test_grad_pack.py): the
@@ -1139,7 +1318,6 @@ def train_path(kernels) -> tuple:
 
     from repro_torch.configs import get_config
     from repro_torch.core.comm import CommChannel
-    from repro_torch.kernels.grad_pack import unpack_grads_fused
     from repro_torch.optim import OptHParams
     from repro_torch.train import TrainConfig, init_train_state, make_train_step
     from repro_torch.train.grad_sync import make_packer
@@ -1189,8 +1367,29 @@ def train_path(kernels) -> tuple:
     wires = [pack(g, zeros)[0] for g in grads]
     torch.cuda.synchronize()
     pack_s = time.monotonic() - t0
-    deq = [unpack_grads_fused(w, g) for w, g in zip(wires, grads)]
-    channel = CommChannel()
+    same, _ = dp_exchange(CommChannel(), wires, grads)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"{TRAIN_ARCH} DP exchange: 2 ranks, wires of {len(wires[0])} bytes packed in {pack_s} s, "
+          f"averaged over the CommChannel == direct average bit for bit: {same}; "
+          + " ".join(f"{name}.launches={n}" for name, n in launches.items()))
+    if not same:
+        fail("DP exchange: the average over the CommChannel differs from the direct average")
+    del zeros, wires
+    torch.cuda.empty_cache()
+    return launches, grads, per_step
+
+
+def dp_exchange(channel, wires, grads) -> tuple:
+    """Rank 0's wire as a request, rank 1's as a response over ``channel``;
+    each side unpacks its peer's and averages.  Returns (the averages equal
+    the direct average of the two ranks' own unpacked wires bit for bit,
+    the wires arrived bit for bit)."""
+    import torch
+
+    from repro_torch.kernels.grad_pack import unpack_grads_fused
+    from repro_torch.tree import leaves
+
     channel.send_request(wires[0])  # rank 0 -> rank 1
     channel.send_response(wires[1])  # rank 1 -> rank 0
     for _ in range(4):
@@ -1204,22 +1403,56 @@ def train_path(kernels) -> tuple:
                 break
     if set(arrived) != {"request", "response"}:
         fail(f"DP exchange: the wires did not arrive over the CommChannel ({sorted(arrived)})")
+    intact = bytes(arrived["request"]) == bytes(wires[0]) and bytes(arrived["response"]) == bytes(wires[1])
+    deq = [unpack_grads_fused(w, g) for w, g in zip(wires, grads)]
     from_peer0 = unpack_grads_fused(arrived["request"], grads[1])
     from_peer1 = unpack_grads_fused(arrived["response"], grads[0])
     same = all(
         torch.equal((a + p1) / 2, (a + b) / 2) and torch.equal((p0 + b) / 2, (a + b) / 2)
         for a, b, p0, p1 in zip(leaves(deq[0]), leaves(deq[1]), leaves(from_peer0), leaves(from_peer1))
     )
+    return same, intact
+
+
+def device_stage_path(grads, kernels) -> dict:
+    """Phase 4c's device stage: phase 5's two-rank DP exchange once more,
+    each rank's gradients packed again on the card (one pack a rank), over
+    CommChannel(stage="device"): every progress drain rides one staged
+    buffer on the card, one copy each way.  The wires must arrive bit for
+    bit and the averages equal the direct average bit for bit.  Every
+    kernel's count is set to 0 just before and read just after.  Returns
+    the launches."""
+    import torch
+
+    from repro_torch.core.comm import CommChannel
+    from repro_torch.train.grad_sync import make_packer
+
+    for fn in kernels.values():
+        fn.launches = 0
+    pack = make_packer("device")
+    zeros = _zeros_ef(grads[0])
+    wires = [pack(g, zeros)[0] for g in grads]
+    del zeros
+    channel = CommChannel(stage="device")
+    t0 = time.monotonic()
+    same, intact = dp_exchange(channel, wires, grads)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in kernels.items()}
-    print(f"{TRAIN_ARCH} DP exchange: 2 ranks, wires of {len(wires[0])} bytes packed in {pack_s} s, "
-          f"averaged over the CommChannel == direct average bit for bit: {same}; "
+    st = channel.group.stats
+    print(f"{TRAIN_ARCH} DP exchange over CommChannel(stage='device') on {channel.group.device}: wires arrived bit "
+          f"for bit: {intact}; average == direct average bit for bit: {same}; staged_batches={st.staged_batches} "
+          f"staged_bytes={st.staged_bytes} wall={time.monotonic() - t0} s "
           + " ".join(f"{name}.launches={n}" for name, n in launches.items()))
-    if not same:
-        fail("DP exchange: the average over the CommChannel differs from the direct average")
-    del deq, from_peer0, from_peer1, zeros, wires
+    if not (same and intact):
+        fail(f"device-stage DP exchange: wires intact {intact}, average bit for bit {same}")
+    if st.staged_batches < 1 or st.staged_bytes != sum(len(w) for w in wires):
+        fail(f"device-stage DP exchange: staged {st.staged_batches} batches of {st.staged_bytes} bytes, "
+             f"want every wire byte ({sum(len(w) for w in wires)}) staged")
+    if launches != dict(NO_LAUNCH, quantize_pack=2):
+        fail(f"device-stage DP exchange: launches {launches}, want one pack a rank")
+    del wires
     torch.cuda.empty_cache()
-    return launches, grads, per_step
+    return launches
 
 
 def grad_pack_full(grads) -> dict:
@@ -1503,6 +1736,23 @@ PATHS = [
      3e-2, DEEPSEEK_F32_LAYERS),
 ]
 
+# Phase 4c, the fleet: each model (full width and depth, bf16, seed 0) with
+# its transport and the launches each kernel must make a single-shot
+# prefill.  Decode launches no kernel on these two paths, and an adopted slot
+# is never prefilled again, so a fleet run of the 16 phase-4 requests makes
+# exactly 16 prefills' worth.  The fleet: FLEET_WORKERS workers of
+# FLEET_SLOTS // FLEET_WORKERS slots, rank slots for FLEET_MAX_WORKERS.
+FLEET_PATHS = [
+    ("tinyllama-1.1b", "collective", dict(NO_LAUNCH, flash_attention=22)),
+    ("mamba2-130m", "shmem", dict(NO_LAUNCH, ssd_chunk_kernel=24)),
+]
+FLEET_SLOTS, FLEET_WORKERS, FLEET_MAX_WORKERS = 8, 2, 3
+# worker 0 leaves once the fleet has emitted this share of all its tokens
+FLEET_LEAVE_AT = 0.25
+# batch sizes of the batch-invariance reading, and its steps
+INVARIANCE_BATCHES, INVARIANCE_STEPS = (1, 2, 4, 8), 4
+SERVED_PROMPTS = {}  # phase 4's prompts by model, filled by serve_path
+
 # Phases 3b/4b, the later families at full width, bf16, random weights from
 # seed 0, each as (model, layers on the card (None: all), the launches each
 # kernel must make a prefill and a decode step, the cap of the kernel
@@ -1688,6 +1938,10 @@ def main() -> int:
     for name, layers, per_prefill, per_step, f32_cap in FAMILY_PATHS:
         by_path.update(family_path(name, layers, per_prefill, per_step, f32_cap, ops, kernels, gen_fam))
 
+    # 4c. the fleet: batch invariance, then single host vs fleet vs churn ------
+    for name, transport, per_prefill in FLEET_PATHS:
+        by_path.update(fleet_path(name, transport, per_prefill, kernels))
+
     # 5. training: the gate, the train path with the DP exchange, the pack ---
     train_gate(ops)
     train_launches, grads, _ = train_path(kernels)
@@ -1696,6 +1950,7 @@ def main() -> int:
         fail(f"{TRAIN_ARCH} train path: launches {train_launches}, want {want} "
              f"({TRAIN_STEPS} steps and 2 ranks' gradients of one flash launch a layer; one pack a rank)")
     by_path[f"{TRAIN_ARCH} train"] = train_launches
+    by_path[f"{TRAIN_ARCH} DP exchange (stage=device)"] = device_stage_path(grads, kernels)
     gp_ms = grad_pack_full(grads)
     del grads
     torch.cuda.empty_cache()

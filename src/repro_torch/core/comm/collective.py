@@ -1,11 +1,15 @@
 """The serving hand-off over the paper's CommInterface verbs.
 
-Port's copy of ``repro/core/comm/collective.py`` without the parcelport,
-the JAX staging stage and the shared-memory backend:
+Port of ``repro/core/comm/collective.py`` without the parcelport:
 
 * :class:`CollectiveGroup` — the transport: ``(rank, device)`` endpoints
-  exchanging byte messages through a pure-python loopback, bounded by one
-  shared :class:`~.resources.ResourceLimits`.
+  exchanging byte messages, bounded by one shared
+  :class:`~.resources.ResourceLimits`.  The default **pure-python
+  loopback** stage hands the bytes over as they are; ``stage='device'``
+  (the reference's ``stage='jax'``) moves every progress drain through
+  ONE staged buffer on a device — the payloads concatenated, one copy to
+  the device and one back, sliced into views — which is what an
+  all-to-all over the collectives layer degenerates to on one host.
 * :class:`CollectiveComm` — one endpoint, a full five-verb
   :class:`~.interface.CommInterface` backend: tagged ``post_send`` /
   ``post_recv`` with an unexpected-message queue, typed
@@ -13,11 +17,13 @@ the JAX staging stage and the shared-memory backend:
   transit ring, ``EAGAIN_BUFFER`` on exhausted bounce accounting),
   explicit ``progress`` / ``poll``, and honest capabilities (no one-sided
   put).
-* :class:`CommChannel` — the serving stack's request/response hand-off: a
-  two-rank group, pre-posted tagged receives completing into shared
-  completion queues, and :class:`~.base.InjectionThrottle` parking on
-  both sides.  :class:`repro_torch.serve.server.InferenceServer` drives
-  it through the shared :class:`~.progress.ProgressEngine`.
+* :class:`CommChannel` — the serving stack's request/response hand-off
+  over a collective or a shared-memory
+  (:class:`~.shmem.ShmemGroup`) group: pre-posted tagged receives
+  completing into shared completion queues,
+  :class:`~.base.InjectionThrottle` parking on both sides, and responses
+  over ``post_put_signal`` wherever the server endpoint's capabilities
+  advertise a one-sided put.  N channels share one group in the fleet.
 """
 from __future__ import annotations
 
@@ -60,14 +66,17 @@ TAG_RESPONSE = 2  # serving hand-off: server -> client token batches
 @dataclass
 class FabricStats:
     """Transport counters: the fields of ``repro.core.fabric.FabricStats``
-    that the loopback transport moves."""
+    that the collective and shared-memory transports move."""
 
     messages: int = 0
     bytes: int = 0
+    puts: int = 0  # one-sided puts (the shared-memory transport)
     sends: int = 0
     eager_msgs: int = 0  # messages shipped through the eager protocol
     rendezvous_msgs: int = 0  # non-eager messages
     backpressure_events: int = 0  # EAGAIN-style post rejections
+    staged_bytes: int = 0  # payload bytes moved through staged device buffers
+    staged_batches: int = 0  # device-buffer staging round trips (1 per drain)
 
 
 class _Transit:
@@ -114,18 +123,28 @@ class CollectiveGroup:
     """The collectives transport: ``n_ranks × devices_per_rank`` endpoints.
 
     Injection bounds come from one :class:`ResourceLimits`; stats use the
-    fabric's :class:`FabricStats` shape.  The port keeps the pure-python
-    loopback stage only."""
+    fabric's :class:`FabricStats` shape.  ``stage='device'`` stages every
+    drain through a buffer on ``device`` (``cuda`` unless the caller asks
+    for the CPU)."""
 
     def __init__(
         self,
         n_ranks: int,
         devices_per_rank: int = 1,
         limits: Optional[ResourceLimits] = None,
+        stage: str = "loopback",
+        device: Any = None,
     ):
+        assert stage in ("loopback", "device"), stage
         self.n_ranks = n_ranks
         self.devices_per_rank = max(1, devices_per_rank)
         self.limits = limits or ResourceLimits()
+        self.stage = stage
+        self.device = None
+        if stage == "device":
+            from ...device import resolve_device
+
+            self.device = resolve_device(device)
         self.stats = FabricStats()
         # Endpoints on different ranks share these counters — every update
         # takes this lock (the fabric guards its stats likewise).
@@ -137,6 +156,39 @@ class CollectiveGroup:
 
     def endpoint(self, rank: int, dev: int = 0) -> "CollectiveComm":
         return self._endpoints[(rank, dev)]
+
+    def _stage_batch(self, datas: List[bytes]) -> List[Any]:
+        """Move a whole progress drain through the stage at once.
+
+        ``'device'`` concatenates the batch into ONE staged device buffer:
+        one copy to the device and one back per drain (never one pair per
+        message: the per-message software overhead the paper's data-plane
+        argument is about, §5), sliced back into zero-copy views on
+        return.  :class:`FabricStats` counts the staged bytes and batches
+        (``staged_bytes`` / ``staged_batches``)."""
+        if self.stage == "loopback" or not datas:
+            return datas
+        import numpy as np
+        import torch
+
+        sizes = [len(d) for d in datas]
+        total = sum(sizes)
+        flat = np.empty((total,), dtype=np.uint8)
+        off = 0
+        for d, n in zip(datas, sizes):
+            flat[off : off + n] = np.frombuffer(d, dtype=np.uint8)
+            off += n
+        staged = torch.from_numpy(flat).to(self.device, copy=True)
+        back = memoryview(staged.to("cpu", copy=True).numpy())
+        with self._stats_lock:
+            self.stats.staged_bytes += total
+            self.stats.staged_batches += 1
+        out: List[Any] = []
+        off = 0
+        for n in sizes:
+            out.append(back[off : off + n])
+            off += n
+        return out
 
 
 class CollectiveComm:
@@ -258,16 +310,18 @@ class CollectiveComm:
         then match arrivals waiting in this endpoint's inbox."""
         self.progress_calls += 1
         moved = False
-        # Drain the whole batch of posted transits first, then deliver them;
-        # delivery, stats and completion signalling go per message, in post
-        # order.
+        # Drain the whole batch of posted transits first, then stage them
+        # through the transport in ONE device-buffer round trip (see
+        # CollectiveGroup._stage_batch): one transfer per drain instead of
+        # one per message.  Delivery, stats and completion signalling stay
+        # per message, in post order.
         batch: List[_Transit] = []
         with self._send_lock:
             while self._outbox and len(batch) < max_completions:
                 batch.append(self._outbox.popleft())
         if batch:
-            for t in batch:
-                payload = t.data
+            payloads = self.group._stage_batch([t.data for t in batch])
+            for t, payload in zip(batch, payloads):
                 dest = self.group.endpoint(t.dst_rank, t.dst_dev)
                 with dest._inbox_lock:
                     dest._inbox.append((self.rank, t.tag, payload))
@@ -328,7 +382,7 @@ class CollectiveComm:
 
 class CommChannel:
     """The serving stack's request/response hand-off over CommInterface
-    verbs (client = rank 0, server = rank 1).
+    verbs (client = rank 0, server = rank 1 unless given).
 
     Requests ride ``TAG_REQUEST``, responses (token batches) ride
     ``TAG_RESPONSE``; both directions pre-post tagged receives that
@@ -336,23 +390,70 @@ class CommChannel:
     transport refuses park in per-direction
     :class:`~.base.InjectionThrottle`\\ s and retry under the shared
     ``limits.retry_budget`` — the serving hot path gets the SAME
-    backpressure/throttle behaviour as the parcelport study.  The
-    reference's fleet registration (a shared group, explicit ranks, a
-    shared response queue) and its one-sided put path wait for the fleet
-    and shmem slices."""
+    backpressure/throttle behaviour as the parcelport study.
+
+    ``backend='shmem'`` swaps in the true one-sided transport
+    (:class:`~.shmem.ShmemGroup`, same two-rank topology); ``stage`` and
+    ``device`` choose the collective group's stage.
+
+    **Multi-endpoint registration:** the fleet runs N of these channels
+    over ONE shared group — pass ``group`` plus explicit ``client_rank`` /
+    ``server_rank``, and a shared ``response_cq`` so every worker's token
+    batches land in the SAME router-owned queue (rank ``client_rank``'s
+    slab is genuinely the router-owned slot space on put-capable
+    backends).  Put-target registration on the shared client endpoint is
+    idempotent: every channel must bind the same landing queue, never
+    silently rebind it."""
 
     PREPOST = 16
 
-    def __init__(self, limits: Optional[ResourceLimits] = None):
+    def __init__(
+        self,
+        limits: Optional[ResourceLimits] = None,
+        stage: str = "loopback",
+        backend: str = "collective",
+        group: Any = None,
+        client_rank: int = 0,
+        server_rank: int = 1,
+        response_cq: Any = None,
+        device: Any = None,
+    ):
+        assert backend in ("collective", "shmem"), backend
         self.limits = limits or ResourceLimits()
-        self.group = CollectiveGroup(2, 1, limits=self.limits)
-        self.client_rank, self.server_rank = 0, 1
-        self.client = self.group.endpoint(self.client_rank, 0)
-        self.server = self.group.endpoint(self.server_rank, 0)
+        if group is not None:
+            self.group = group  # fleet: N channels share one group
+        elif backend == "shmem":
+            from .shmem import ShmemGroup
+
+            self.group: Any = ShmemGroup(2, 1, limits=self.limits, completion_mode="queue")
+        else:
+            self.group = CollectiveGroup(2, 1, limits=self.limits, stage=stage, device=device)
+        self.client_rank, self.server_rank = client_rank, server_rank
+        self.client = self.group.endpoint(client_rank, 0)
+        self.server = self.group.endpoint(server_rank, 0)
         self.request_cq = LCRQueue()  # server-side: arrived requests
-        self.response_cq = LCRQueue()  # client-side: arrived token batches
+        # client-side: arrived token batches — shared across a fleet's
+        # channels when the router passes its own landing queue in
+        self.response_cq = LCRQueue() if response_cq is None else response_cq
         self._client_throttle = InjectionThrottle(self.limits.retry_budget)
         self._server_throttle = InjectionThrottle(self.limits.retry_budget)
+        # Register the landing queues as put targets where the backend
+        # takes one — what makes ``one_sided_put`` honest (a put needs
+        # somewhere to complete): responses land in the client's response
+        # queue, requests would land in the server's request queue.
+        for ep, landing in ((self.client, self.response_cq), (self.server, self.request_cq)):
+            if hasattr(ep, "put_target_comp"):
+                prev = ep.put_target_comp
+                assert prev is None or prev is landing, (
+                    "endpoint already bound to a different put landing queue "
+                    "(fleet channels must share the router's response_cq)"
+                )
+                ep.put_target_comp = landing
+        # Selected PURELY by Capabilities (never by backend name or type):
+        # when the transport advertises one-sided put, responses ride put
+        # straight into the router-owned response queue — no tag, no
+        # matching, no pre-posted receive consumed (§3.3.1).
+        self._put_responses = self.server.capabilities.one_sided_put
         for _ in range(self.PREPOST):
             self.server.post_recv(-1, TAG_REQUEST, self.request_cq, ctx="request")
             self.client.post_recv(-1, TAG_RESPONSE, self.response_cq, ctx="response")
@@ -370,8 +471,18 @@ class CommChannel:
         )
 
     def send_response(self, payload: bytes) -> None:
-        """Server → client; parks on EAGAIN, retried by the engine step."""
+        """Server → client; parks on EAGAIN, retried by the engine step.
+
+        With a put-capable backend (``self._put_responses``, from the
+        Capabilities alone) the token batch rides one-sided put into the
+        client's router-owned response queue; otherwise the two-sided
+        tagged path."""
         eager = self._eager(payload)
+        if self._put_responses:
+            self._server_throttle.post_or_park(
+                lambda: self.server.post_put_signal(self.client_rank, 0, payload, self.request_cq, ctx="sent", eager=eager)
+            )
+            return
         self._server_throttle.post_or_park(
             lambda: self.server.post_send(self.client_rank, 0, TAG_RESPONSE, payload, self.request_cq, ctx="sent", eager=eager)
         )

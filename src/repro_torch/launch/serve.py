@@ -4,12 +4,17 @@ Port of ``repro/launch/serve.py``: runs the continuous-batching engine on
 a (smoke) model with a synthetic request stream submitted from several
 client threads, and prints latency/throughput stats.  The request/response
 hand-off rides the comm layer (``--transport collective``, the default)
-driven by the shared ``ProgressEngine``; ``--transport inline`` runs the
-direct path.  ``--prefill-chunk C`` turns on chunked prefill.
+driven by the shared ``ProgressEngine``; ``--transport shmem`` rides the
+one-sided put backend; ``--transport inline`` runs the direct path.
+
+``--workers N`` (N > 1) scales the model tier out into the fleet: one
+router, N workers each with a shard of the slots, per-worker channels over
+one shared group — same math, same request stream.  ``--prefill-chunk C``
+turns on chunked prefill (prompts cross the wire as C-token pieces
+interleaved with decode).
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
-raises.  Weights are random, from a ``torch.Generator`` seeded with 0.  The
-fleet (``--workers > 1``) and the shmem transport wait for a later slice.
+raises.  Weights are random, from a ``torch.Generator`` seeded with 0.
 An encoder-decoder (``whisper-large-v3``) is refused: a request carries
 tokens only, as in the reference.
 """
@@ -26,7 +31,7 @@ import torch
 from ..configs import get_smoke_config
 from ..device import resolve_device
 from ..models import init_params
-from ..serve import InferenceServer, ServeConfig
+from ..serve import Fleet, FleetConfig, InferenceServer, ServeConfig
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -40,7 +45,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--transport", choices=("collective", "shmem", "inline"), default="collective")
     ap.add_argument(
         "--workers", type=int, default=1,
-        help="model workers; >1 runs the router+fleet tier (not ported yet)",
+        help="model workers; >1 runs the router+fleet tier (slots shard across workers)",
     )
     ap.add_argument(
         "--prefill-chunk", type=int, default=0,
@@ -49,15 +54,22 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
 
-    if args.workers > 1:
-        raise NotImplementedError("--workers > 1 needs the fleet, which is not ported yet (ROADMAP.md, queue A)")
     device = resolve_device(args.device)
     arch = get_smoke_config(args.arch)
     params = init_params(torch.Generator(device=device).manual_seed(0), arch)
-    server = InferenceServer(
-        arch, params,
-        ServeConfig(slots=args.slots, context=256, transport=args.transport, prefill_chunk=args.prefill_chunk),
-    )
+    if args.workers > 1:
+        server = Fleet(
+            arch, params,
+            FleetConfig(
+                workers=args.workers, slots=args.slots, context=256,
+                transport=args.transport, prefill_chunk=args.prefill_chunk,
+            ),
+        )
+    else:
+        server = InferenceServer(
+            arch, params,
+            ServeConfig(slots=args.slots, context=256, transport=args.transport, prefill_chunk=args.prefill_chunk),
+        )
     rng = np.random.default_rng(0)
     rng_lock = threading.Lock()
     reqs = []
@@ -90,11 +102,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     dt = time.monotonic() - t0
     done = [r for r in reqs if r.done_event.is_set()]
     ttft = [r.first_token_at - r.submitted_at for r in done if r.first_token_at]
+    tier = f"fleet(workers={args.workers})" if args.workers > 1 else "single-host"
+    extra = ""
+    if args.workers > 1:
+        extra = f" eagain={server.eagain_events}"
+        server.close()
     print(
         f"requests={len(done)}/{len(reqs)} engine_steps={server.steps} "
         f"tokens={server.tokens_out} throughput={server.tokens_out/dt:.1f} tok/s "
         f"ttft_p50={np.median(ttft)*1e3:.1f}ms transport={args.transport} "
-        f"tier=single-host device={device}"
+        f"tier={tier}{extra} device={device}"
     )
     return 0 if len(done) == len(reqs) else 1
 

@@ -409,6 +409,17 @@ def _cross_decode(cp: Params, cfg: ArchConfig, x: torch.Tensor, ck: torch.Tensor
     return torch.einsum("bshk,hkd->bsd", out, cp["attn"]["wo"])
 
 
+# decode_step runs its batch in tiles of this many rows, the last one padded
+# with copies of its first row: every op of a step then sees the same shapes
+# whatever the batch, so a row's logits and cache do not depend on how many
+# rows share the call.  A GEMM's, a reduction's or a batched product's
+# kernel (MKL's on the CPU, cuBLAS's and PyTorch's on a card) is chosen by
+# its shapes, and at M = 1 and 2 the CPU's gives rows other bits than at
+# M = 4 and 8 (tests/test_torch_fleet.py).  8 is the served slot count, so
+# a server of 8 slots decodes in one tile, as before.
+DECODE_TILE = 8
+
+
 def decode_step(
     params: Params,
     cfg: ArchConfig,
@@ -416,7 +427,37 @@ def decode_step(
     positions: torch.Tensor,  # (B,) absolute position of the new token
     cache: Params,
 ) -> Tuple[torch.Tensor, Params]:
-    """One token per row; returns (logits (B, 1, V), cache updated in place)."""
+    """One token per row; returns (logits (B, 1, V), cache updated in place).
+    The rows run in tiles of :data:`DECODE_TILE`; a partial tile is padded
+    with copies of its first row on a copy of its cache rows, which are
+    written back."""
+    b = tokens.shape[0]
+    if b == DECODE_TILE:
+        return _decode_tile(params, cfg, tokens, positions, cache), cache
+    out = []
+    for t0 in range(0, b, DECODE_TILE):
+        r = min(DECODE_TILE, b - t0)
+        rows = tree_map(lambda t: t[:, t0 : t0 + r], cache)
+        tok, pos = tokens[t0 : t0 + r], positions[t0 : t0 + r]
+        if r == DECODE_TILE:
+            out.append(_decode_tile(params, cfg, tok, pos, rows))
+            continue
+        tile = tree_map(lambda t: _pad_rows(t, DECODE_TILE, dim=1), rows)
+        logits = _decode_tile(params, cfg, _pad_rows(tok, DECODE_TILE), _pad_rows(pos, DECODE_TILE), tile)
+        out.append(logits[:r])
+        tree_map(lambda dst, src: dst.copy_(src[:, :r]), rows, tile)
+    return torch.cat(out), cache
+
+
+def _pad_rows(t: torch.Tensor, n: int, dim: int = 0) -> torch.Tensor:
+    """``t`` grown to ``n`` rows along ``dim`` by copies of its first row."""
+    shape = list(t.shape)
+    shape[dim] = n - t.shape[dim]
+    return torch.cat([t, t.narrow(dim, 0, 1).expand(shape)], dim=dim)
+
+
+def _decode_tile(params: Params, cfg: ArchConfig, tokens: torch.Tensor, positions: torch.Tensor, cache: Params) -> torch.Tensor:
+    """:func:`decode_step` on one tile of rows; returns the logits."""
     x = _embed_tokens(params, tokens)
     for i in range(cfg.n_layers):
         lp = _index(params["layers"], i)
@@ -435,4 +476,4 @@ def decode_step(
             x = x + _channel(lp, cfg, rms_norm(x, lp["ln2"], cfg.norm_eps))
         if "shared_block" in params and i % cfg.attn_every == 0:
             x = _shared_block(params["shared_block"], cfg, x, _index(cache["shared_attn"], i // cfg.attn_every), positions)
-    return _logits(params, cfg, x), cache
+    return _logits(params, cfg, x)

@@ -8,9 +8,13 @@ and per-token responses cross the paper's :class:`CommInterface` verbs on
 a :class:`~repro_torch.core.comm.collective.CommChannel` as bytes, and the
 engine loop drives the shared :class:`ProgressEngine`; token completions
 of all active slots aggregate into ONE response message per engine step.
-``transport='inline'`` is the direct hand-off, the parity reference.  The
-shared-memory transport and the fleet wait for a later slice (ROADMAP.md,
-queue A).
+``transport='shmem'`` swaps in the true one-sided shared-memory transport
+(responses ride ``post_put_signal`` whenever the backend's capabilities
+advertise a one-sided put); ``transport='inline'`` is the direct
+hand-off, the parity reference.  :class:`DecodeCore` is shared verbatim
+with the fleet's :class:`~repro_torch.serve.fleet.ModelWorker`, which
+shards the slot space across cores and hands a live slot from one core to
+another (:meth:`DecodeCore.extract_slot` / :meth:`DecodeCore.adopt_slot`).
 
 The model runs on the device its parameters lie on.  Where the JAX server
 donates the cache to ``jit``, this one updates it in place under
@@ -38,6 +42,7 @@ from ..core.comm.progress import ProgressEngine, ProgressPolicy, run_step
 from ..core.comm.resources import ResourceLimits
 from ..core.comm.wire import decode_msg, encode_msg
 from ..models import decode_step, init_cache, prefill
+from ..tree import tree_map
 
 __all__ = ["ServeConfig", "Request", "DecodeCore", "InferenceServer"]
 
@@ -48,8 +53,10 @@ class ServeConfig:
     context: int = 256  # KV slots per sequence
     max_prefill: int = 64  # prompts are cut to their first max_prefill tokens
     # Request/response hand-off: 'collective' rides CommInterface verbs on
-    # a CollectiveComm pair driven by the shared ProgressEngine; 'inline'
-    # is the direct hand-off (the parity reference in tests).
+    # a CollectiveComm pair driven by the shared ProgressEngine; 'shmem'
+    # the one-sided shared-memory transport (responses by put when the
+    # backend's Capabilities advertise one_sided_put); 'inline' is the
+    # direct hand-off (the parity reference in tests).
     transport: str = "collective"
     # Chunked prefill: 0 = single-shot prefill at admission; N > 0 = the
     # prompt is consumed one token per engine step through decode_step,
@@ -84,7 +91,11 @@ class DecodeCore:
 
     Owns the batched decode cache (``init_cache(arch, slots, context)``:
     ring K/V, or SSM and conv state, or both) and the per-slot positions /
-    budgets.  Two admission modes:
+    budgets.  The single-host :class:`InferenceServer` runs ONE core of
+    ``cfg.slots`` slots; the fleet runs N cores of ``slots // n_workers``
+    each.  A row of ``decode_step`` is bit-identical whatever the batch
+    (``models.model.DECODE_TILE``), so sharding the slot space across
+    cores cannot change any request's token stream.  Two admission modes:
 
     * **single-shot** (``prefill_chunk == 0``): the whole prompt runs
       through ``prefill`` on a one-slot scratch cache whose rows are then
@@ -92,7 +103,11 @@ class DecodeCore:
     * **chunked** (``prefill_chunk > 0``): the slot starts empty and
       consumes ONE prompt token per engine step through the same batched
       ``decode_step`` that serves the decoding slots (teacher forcing), so
-      a long prompt never stalls the other slots' decode.
+      a long prompt never stalls the other slots' decode.  Chunks may lag
+      the consumer: a starved slot re-feeds its last token WITHOUT
+      advancing its position, and its cache row (K/V, SSM and conv state)
+      is put back as it was before the step, so stall timing cannot
+      perturb the stream.
     """
 
     def __init__(
@@ -126,8 +141,17 @@ class DecodeCore:
         # back to the host, so device time is included
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
-        # chunked-prefill state: slot -> prompt tokens still to consume
+        # worst prompt-tokens-of-prefill-work attributed to a single engine
+        # step — the burst chunked prefill exists to bound (<= active slots
+        # per step vs a whole prompt per admission single-shot)
+        self.max_prefill_burst = 0
+        self._pending_burst = 0  # single-shot prefill work since the last step
+        # chunked-prefill state: slot -> prompt tokens still to consume, and
+        # whether more chunks are on their way
         self._prefill_queue: Dict[int, deque] = {}
+        self._prefill_open: Dict[int, bool] = {}
+        self._rid_slot: Dict[int, int] = {}
+        self._one_slot: Optional[Dict[str, Any]] = None  # abstract_slot_state's tree
 
     # ------------------------------------------------------------- occupancy
     def free_slots(self) -> List[int]:
@@ -153,17 +177,24 @@ class DecodeCore:
 
     # ------------------------------------------------------------- admission
     @torch.inference_mode()
-    def admit(self, req: Request, emit: EmitFn) -> int:
-        """Place ``req`` into the lowest free slot; returns the slot index."""
+    def admit(self, req: Request, emit: EmitFn, more_chunks: bool = False) -> int:
+        """Place ``req`` into the lowest free slot; returns the slot index.
+        With chunked prefill, ``req.prompt`` may hold only the FIRST chunk:
+        ``more_chunks=True`` keeps the slot prefilling until
+        :meth:`feed_chunk` delivers the rest (the first chunk is then not
+        cut to ``max_prefill``: the sender cut the whole prompt)."""
         slot = self.free_slots()[0]
-        prompt = req.prompt[: self.max_prefill]
         if self.prefill_chunk > 0:
+            prompt = req.prompt if more_chunks else req.prompt[: self.max_prefill]
             self._reset_row(slot)
             self._slots[slot] = req
             self._positions[slot] = 0
             self._remaining[slot] = req.max_new
             self._prefill_queue[slot] = deque(prompt)
+            self._prefill_open[slot] = more_chunks
+            self._rid_slot[req.rid] = slot
             return slot
+        prompt = req.prompt[: self.max_prefill]
         # single-sequence prefill on a scratch cache, then copy into the slot
         one = init_cache(self.arch, 1, self.context, self.device)
         t0 = time.perf_counter()
@@ -173,45 +204,74 @@ class DecodeCore:
         tok = int(torch.argmax(logits[0, -1]))
         self.prefill_seconds += time.perf_counter() - t0
         self.prefill_calls += 1
+        self._pending_burst += len(prompt)
         done = req.max_new <= 1
         self._slots[slot] = None if done else req
         self._positions[slot] = len(prompt)
         self._remaining[slot] = req.max_new - 1
         self._last_tok[slot] = tok
+        if not done:
+            self._rid_slot[req.rid] = slot
         self.tokens_out += 1
         emit(req, tok, done)
         return slot
+
+    def feed_chunk(self, rid: int, tokens: List[int], last: bool) -> None:
+        """Append a follow-up prompt chunk for an admitted request."""
+        slot = self._rid_slot[rid]
+        assert self._prefill_open.get(slot), f"slot {slot} is not expecting chunks"
+        self._prefill_queue[slot].extend(tokens)
+        if last:
+            self._prefill_open[slot] = False
+
+    def prefilling(self, rid: int) -> bool:
+        slot = self._rid_slot.get(rid)
+        return slot is not None and slot in self._prefill_queue
 
     # ----------------------------------------------------------------- step
     @torch.inference_mode()
     def step(self, emit: EmitFn) -> bool:
         """One batched decode over all active slots.  Decoding slots
         advance one generated token; prefilling slots consume one prompt
-        token, emitting their first token when the prompt is exhausted.
+        token (emitting their first token when the prompt is exhausted);
+        starved prefilling slots hold their position and cache row.
         Returns False when no slot is active (no decode dispatched)."""
         active = [i for i, r in enumerate(self._slots) if r is not None]
         if not active:
             return False
+        fed, starved = set(), []
         for i in active:
             q = self._prefill_queue.get(i)
+            if q is None:
+                continue  # plain decoding slot
             if q:
                 self._last_tok[i] = q.popleft()  # teacher forcing
+                fed.add(i)
+            else:  # starved mid-prefill: re-feed the last token, hold position
+                starved.append(i)
+        held = [(i, self._row(i)) for i in starved]
         t0 = time.perf_counter()
         toks = torch.from_numpy(self._last_tok[:, None].astype(np.int64)).to(self.device)
         pos = torch.from_numpy(self._positions.copy()).to(self.device)
         logits, self.cache = decode_step(self.params, self.arch, toks, pos, self.cache)
         nxt = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy().astype(np.int32)
         self.decode_seconds += time.perf_counter() - t0
+        for i, row in held:
+            self._splice(row, i)
         for i in active:
             req = self._slots[i]
-            self._positions[i] += 1
-            q = self._prefill_queue.get(i)
-            if q is not None:
-                if q:
+            if i in self._prefill_queue:
+                if i not in fed:
+                    continue  # starved: nothing advanced
+                self._positions[i] += 1
+                if self._prefill_queue[i] or self._prefill_open[i]:
                     continue  # more prompt to consume: no emission yet
                 # the LAST prompt token was just fed: its logits give the
                 # first generated token
                 del self._prefill_queue[i]
+                del self._prefill_open[i]
+            else:
+                self._positions[i] += 1
             self._remaining[i] -= 1
             self._last_tok[i] = nxt[i]
             done = self._remaining[i] <= 0
@@ -219,8 +279,76 @@ class DecodeCore:
             emit(req, int(nxt[i]), done)
             if done:
                 self._slots[i] = None
+                self._rid_slot.pop(req.rid, None)
         self.steps += 1
+        self.max_prefill_burst = max(self.max_prefill_burst, self._pending_burst + len(fed))
+        self._pending_burst = 0
         return True
+
+    # ---------------------------------------------------------- slot hand-off
+    def _row(self, slot: int) -> Dict[str, Any]:
+        """A copy of row ``slot`` of the stacked cache as a one-slot cache."""
+        return tree_map(lambda full: full[:, slot : slot + 1].clone(), self.cache)
+
+    def active_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self._slots) if r is not None]
+
+    @torch.inference_mode()
+    def extract_slot(self, slot: int) -> tuple:
+        """Snapshot one ACTIVE slot for hand-off to another core and free
+        it.  Returns ``(state, meta)``: ``state`` is the slot's cache row as
+        a one-slot cache (K/V ring, SSM and conv state, MLA latents alike),
+        ``meta`` the scalar scheduler state.  The cache writes are
+        position-addressed and rows of a batched decode are independent, so
+        splicing these exact bits into ANY core's free slot continues the
+        token stream bit-identically."""
+        req = self._slots[slot]
+        assert req is not None, f"slot {slot} is empty"
+        state = self._row(slot)
+        meta = {
+            "rid": req.rid,
+            "prompt": list(req.prompt),
+            "max_new": req.max_new,
+            "position": int(self._positions[slot]),
+            "remaining": int(self._remaining[slot]),
+            "last_tok": int(self._last_tok[slot]),
+            "prefill_queue": list(self._prefill_queue[slot]) if slot in self._prefill_queue else None,
+            "prefill_open": bool(self._prefill_open.get(slot, False)),
+        }
+        self._slots[slot] = None
+        self._rid_slot.pop(req.rid, None)
+        self._prefill_queue.pop(slot, None)
+        self._prefill_open.pop(slot, None)
+        return state, meta
+
+    @torch.inference_mode()
+    def adopt_slot(self, state: Any, meta: Dict[str, Any], req: Optional[Request] = None) -> int:
+        """Splice a handed-off slot (from :meth:`extract_slot`, possibly
+        round-tripped through ``checkpoint.snapshot``) into the lowest free
+        slot and resume its schedule exactly where it stopped.  Pass
+        ``req`` when the caller tracks its own request object (the fleet
+        worker does); emissions will carry it."""
+        slot = self.free_slots()[0]
+        self._splice(state, slot)
+        if req is None:
+            req = Request(rid=meta["rid"], prompt=list(meta["prompt"]), max_new=meta["max_new"])
+        self._slots[slot] = req
+        self._positions[slot] = meta["position"]
+        self._remaining[slot] = meta["remaining"]
+        self._last_tok[slot] = meta["last_tok"]
+        self._rid_slot[req.rid] = slot
+        if meta.get("prefill_queue") is not None:
+            self._prefill_queue[slot] = deque(meta["prefill_queue"])
+            self._prefill_open[slot] = meta["prefill_open"]
+        return slot
+
+    def abstract_slot_state(self) -> Dict[str, Any]:
+        """Shape, dtype and device reference for validating an incoming
+        hand-off snapshot (``unpack_state(..., abstract=...)``): a one-slot
+        cache, allocated once."""
+        if self._one_slot is None:
+            self._one_slot = init_cache(self.arch, 1, self.context, self.device)
+        return self._one_slot
 
 
 def _named_leaves(tree: Dict[str, Any], name: str = ""):
@@ -251,8 +379,8 @@ class InferenceServer:
         self._inflight: Dict[int, Request] = {}  # rid -> client-side Request
         self._inflight_lock = threading.Lock()
         self._outbox: List[tuple] = []  # (rid, tok, done) batch of one step
-        if cfg.transport == "collective":
-            self._channel = CommChannel(limits=cfg.limits)
+        if cfg.transport in ("collective", "shmem"):
+            self._channel = CommChannel(limits=cfg.limits, backend=cfg.transport)
             # step_lock=True: the whole engine step runs behind a try-lock
             # (implemented in `execute`), so a second driver can never
             # interleave dispatches with the serve loop's own step.
@@ -262,10 +390,6 @@ class InferenceServer:
                 ndevices=1,
             )
             self._step_lock = threading.Lock()
-        elif cfg.transport == "shmem":
-            raise NotImplementedError(
-                "the shmem transport is not ported yet (ROADMAP.md, queue A); use 'collective' or 'inline'"
-            )
         elif cfg.transport != "inline":
             raise ValueError(f"unknown transport {cfg.transport!r}")
 

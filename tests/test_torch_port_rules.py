@@ -50,7 +50,7 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "torch_serve_profile.py", REPO / "tools" / "torch_train_profile.py",
-    REPO / "tools" / "torch_ssd_bench.py"]
+    REPO / "tools" / "torch_ssd_bench.py", REPO / "tools" / "torch_decode_rows.py"]
 
 
 def _imported_roots(path: Path):
@@ -73,9 +73,12 @@ def test_port_files_exist():
                 "src/repro_torch/data/pipeline.py", "src/repro_torch/optim/adamw.py",
                 "src/repro_torch/train/grad_sync.py", "src/repro_torch/train/step.py",
                 "src/repro_torch/train/trainer.py", "src/repro_torch/launch/train.py",
-                "src/repro_torch/checkpoint/manager.py", "src/repro_torch/checkpoint/snapshot.py", "chip_smoke.py"):
+                "src/repro_torch/checkpoint/manager.py", "src/repro_torch/checkpoint/snapshot.py", "chip_smoke.py",
+                "src/repro_torch/serve/fleet.py", "src/repro_torch/core/comm/shmem.py",
+                "src/repro_torch/analysis/sanitizer.py"):
         assert rel in names
-    for test in ("test_torch_train.py", "test_torch_train_families.py", "test_torch_checkpoint.py"):  # CPU parity with JAX
+    for test in ("test_torch_train.py", "test_torch_train_families.py", "test_torch_checkpoint.py",
+                 "test_torch_fleet.py", "test_torch_membership.py", "test_torch_shmem.py"):  # CPU parity with JAX
         assert (REPO / "tests" / test).is_file()
     for cu in ("flash_attention", "ssd_scan", "moe_gmm", "grad_pack"):
         assert (REPO / "src" / "repro_torch" / "kernels" / "csrc" / f"{cu}.cu").is_file()

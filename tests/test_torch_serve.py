@@ -99,8 +99,8 @@ def test_bad_requests_and_unported_transport_raise(model):
         server.submit([], max_new=2)
     with pytest.raises(ValueError):
         server.submit([1], max_new=0)
-    with pytest.raises(NotImplementedError, match="queue A"):
-        InferenceServer(tcfg, tp, ServeConfig(transport="shmem"))
+    shmem = InferenceServer(tcfg, tp, ServeConfig(transport="shmem"))  # ported: responses ride one-sided puts
+    assert shmem._channel._put_responses
     with pytest.raises(ValueError):
         InferenceServer(tcfg, tp, ServeConfig(transport="carrier-pigeon"))
 
