@@ -100,7 +100,21 @@ nothing of the JAX package.  In order, it:
    and the heads a block takes; and the host time a call of the SSD and
    grouped-matmul wrappers and of their ``autograd.Function``s under
    ``inference_mode`` (the serving route);
-7. prints one JSON line of the kernels and, last, the device line.
+7. drives the port's parcelport stack (``repro_torch.core``) on the
+   card's machine: (a) the reference's protocol gate over the port — every
+   variant of ``variant_names()`` delivers ``benchmarks/run.py``'s smoke
+   payloads bit for bit, quiesces and closes, a bounded ``lci`` and a
+   bounded ``collective`` world backpressure and deliver, ``lci_eager``
+   takes fewer messages than ``lci_noeager``, and the ``collective``
+   decision trace equals ``sendrecv_queue``'s; (b) bytes made on the card
+   in earlier phases — 64 MiB of phase 5's ``KIND_Q8`` wire and one
+   mamba2 ``RSNP`` hand-off snapshot of phase 4c — as zero-copy chunks
+   through ``lci``, ``mpi``, ``shmem_putq`` and a ``collective`` world
+   whose group stages every drain through a buffer on the card: bit for
+   bit, with the staged bytes every message's payload; (c) the
+   ``lci_eprg0_2`` elastic pool with real threads, within its bounds and
+   closed clean; the walls printed are host walls;
+8. prints one JSON line of the kernels and, last, the device line.
 
 It exits non-zero, printing no result, without a card or outside a
 checkout, and on any failed check.
@@ -261,12 +275,16 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    # a session now and then comes back with no kernel records (seen on the
-    # card, at a different call each run): trace again, up to PROFILE_TRIES
+    # now and then, for a spell of up to about 0.4 s, the card's sessions
+    # come back with no kernel records (tools/torch_profiler_sessions.py):
+    # trace again after PROFILE_PAUSE_S, which outlasts such a spell, and
+    # the warm-up calls, up to PROFILE_TRIES
     for attempt in range(1, PROFILE_TRIES + 1):
+        if attempt > 1:
+            time.sleep(PROFILE_PAUSE_S)
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -279,7 +297,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     fail(f"torch.profiler saw no device time in {PROFILE_TRIES} sessions: device times not measured")
 
 
-PROFILE_TRIES = 3
+PROFILE_TRIES, PROFILE_PAUSE_S = 3, 1.0
 
 
 def host_us(fn, iters: int = 200, warmup: int = 5) -> float:
@@ -1018,6 +1036,19 @@ def fleet_run(arch, params, transport, limits, prompts, kernels, churn: bool):
     fleet = Fleet(arch, params, FleetConfig(
         workers=FLEET_WORKERS, slots=FLEET_SLOTS, context=2048, max_prefill=1024, transport=transport,
         max_workers=FLEET_MAX_WORKERS, limits=limits))
+    if churn and arch.name == PP_SNAPSHOT_ARCH:
+        # keep the first hand-off snapshot for phase 7(b): the fleet has no
+        # public hook on a hand-off, so this wraps Router._handoff.  Inside
+        # the timed leave_worker it adds a dict membership test a hand-off;
+        # the one kept is the snapshot codec's bytes object, not a copy
+        handoff = fleet._handoff
+
+        def keep(rid, payload):
+            if "rsnp" not in PP_PAYLOADS:
+                PP_PAYLOADS["rsnp"] = payload
+            handoff(rid, payload)
+
+        fleet._handoff = keep
     for fn in kernels.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -1367,6 +1398,7 @@ def train_path(kernels) -> tuple:
     wires = [pack(g, zeros)[0] for g in grads]
     torch.cuda.synchronize()
     pack_s = time.monotonic() - t0
+    PP_PAYLOADS["q8"] = bytes(memoryview(wires[0])[:PP_WIRE_SLICE])  # phase 7(b) carries it
     same, _ = dp_exchange(CommChannel(), wires, grads)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in kernels.items()}
@@ -1862,6 +1894,234 @@ FAMILY_TRAINS = [
 RESTART_ARCH = "mamba2-130m"
 RESTART_EVERY, RESTART_STEPS = 3, 6
 
+# Phase 7, the parcelport stack on the card's machine.  (a) The reference's
+# protocol gate (benchmarks/run.py's smoke parts 1, 2, 3 and 8) over the
+# port's modules, on its SMOKE_PAYLOAD_SIZES.  (b) Bytes made on the card,
+# kept from earlier phases as PP_PAYLOADS (no model runs again): the first
+# PP_WIRE_SLICE bytes of rank 0's KIND_Q8 wire from phase 5's
+# make_packer("device") and the first mamba2 RSNP hand-off snapshot of phase
+# 4c's churn run (its slot prefilled through the SSD kernel), each a
+# zero-copy chunk, through PP_CARRIERS; "collective" on a group that stages
+# every drain through a buffer on the card.  Shared-memory slots are sized
+# for the largest payload (the default 64 KiB slot holds a token batch).
+# (c) lci_eprg0_2's elastic pool with real threads.  The walls are host
+# walls on the card's machine.
+PP_SMOKE_SIZES = (8, 600, 3_000, 12_000, 40_000)
+PP_BOUNDED = dict(send_queue_depth=2, bounce_buffers=2, bounce_buffer_size=65_536)
+PP_WIRE_SLICE = 64 << 20
+PP_SNAPSHOT_ARCH = "mamba2-130m"
+PP_CARRIERS = ("lci", "mpi", "shmem_putq", "collective")
+PP_SHMEM_SLOTS = 4
+PP_ELASTIC_PARCELS = 40
+PP_PAYLOADS = {}  # "q8" and "rsnp", filled by train_path and fleet_run
+
+
+def _pp_delivered(got) -> list:
+    return sorted(bytes(a[0]) for a in got)
+
+
+def _pp_trace(name, sizes) -> tuple:
+    """benchmarks/run.py's part 8 on the port: ``name``'s engine decision
+    trace over ``sizes`` sent one at a time (a drain after each), and its
+    transport's message count."""
+    from repro_torch.core.harness import transport_stats
+    from repro_torch.core.parcelport import World
+    from repro_torch.core.variants import make_parcelport_factory, max_devices
+
+    world = World(2, make_parcelport_factory(name), devices_per_rank=max_devices(name))
+    try:
+        tr: list = []
+        for loc in world.localities:
+            loc.parcelport.engine.trace = tr
+        got: list = []
+        world.localities[1].register_action("sink", lambda *a: got.append(a))
+        for s in sizes:
+            world.localities[0].async_action(1, "sink", bytes([s % 251]) * s)
+            world.drain(max_rounds=50_000)
+        if len(got) != len(sizes):
+            fail(f"phase 7 trace: {name} delivered {len(got)} of {len(sizes)}")
+        return tr, transport_stats(world).messages
+    finally:
+        world.close()
+
+
+def parcelport_gate() -> dict:
+    """Phase 7(a): every variant delivers the smoke payloads bit for bit,
+    quiesces and closes; a bounded lci world and a bounded collective one
+    backpressure and deliver; lci_eager uses fewer messages than
+    lci_noeager; the collective decision trace equals sendrecv_queue's.
+    Returns the message counts by variant."""
+    from repro_torch.core.harness import deliver_payloads, transport_stats
+    from repro_torch.core.comm import ResourceLimits
+    from repro_torch.core.variants import variant_names
+
+    smoke = [bytes([s % 251]) * s for s in PP_SMOKE_SIZES]
+
+    def run(name, fabric_kwargs=None):
+        try:
+            world, got = deliver_payloads(name, smoke, fabric_kwargs=fabric_kwargs, max_rounds=50_000)
+        except Exception as exc:  # noqa: BLE001 - a drain that cannot quiesce raises
+            fail(f"phase 7: {name} did not deliver and quiesce: {exc!r}")
+        try:
+            pps = [loc.parcelport for loc in world.localities]
+            quiet = not any(pp.pending_work() or pp.retry_queue_depth() for pp in pps)
+            st = transport_stats(world)
+            out = dict(messages=st.messages, eager=st.eager_msgs, rendezvous=st.rendezvous_msgs,
+                       backpressure=st.backpressure_events, bytes=st.bytes)
+        finally:
+            world.close()
+        if _pp_delivered(got) != sorted(smoke) or not quiet:
+            fail(f"phase 7: {name} delivered {len(got)} of {len(smoke)} (bit for bit: "
+                 f"{_pp_delivered(got) == sorted(smoke)}), quiesced: {quiet}")
+        return out
+
+    t0 = time.monotonic()
+    counts = {}
+    for name in variant_names():
+        counts[name] = run(name)
+        c = counts[name]
+        print(f"parcelport {name}: messages={c['messages']} eager={c['eager']} rendezvous={c['rendezvous']} "
+              f"backpressure={c['backpressure']} bytes={c['bytes']}")
+    bounded = run("lci", fabric_kwargs=dict(PP_BOUNDED))
+    bounded_coll = run("collective", fabric_kwargs={"limits": ResourceLimits(**PP_BOUNDED)})
+    if not (bounded["backpressure"] > 0 and bounded_coll["backpressure"] > 0):
+        fail(f"phase 7: bounded worlds produced no backpressure (lci {bounded['backpressure']}, "
+             f"collective {bounded_coll['backpressure']})")
+    if not counts["lci_eager"]["messages"] < counts["lci_noeager"]["messages"]:
+        fail(f"phase 7: eager used {counts['lci_eager']['messages']} messages, "
+             f"noeager {counts['lci_noeager']['messages']}")
+    (tr_c, m_c), (tr_s, m_s) = _pp_trace("collective", PP_SMOKE_SIZES), _pp_trace("sendrecv_queue", PP_SMOKE_SIZES)
+    if tr_c != tr_s or m_c != m_s:
+        fail(f"phase 7: the collective decision trace ({len(tr_c)} decisions, {m_c} messages) differs from "
+             f"sendrecv_queue's ({len(tr_s)}, {m_s})")
+    print(f"phase 7(a): {len(counts)} variants delivered bit for bit and quiesced; bounded lci "
+          f"{bounded['backpressure']} and collective {bounded_coll['backpressure']} backpressure events; "
+          f"eager {counts['lci_eager']['messages']} < noeager {counts['lci_noeager']['messages']} messages; "
+          f"collective == sendrecv_queue trace ({len(tr_c)} decisions, {m_c} messages); "
+          f"host wall {time.monotonic() - t0} s")
+    return counts
+
+
+def parcelport_carry(payloads, device) -> dict:
+    """Phase 7(b): ``payloads`` (bytes made on the card) as zero-copy
+    chunks through each of PP_CARRIERS, one world each, from rank 0 and
+    rank 1 in turn.  Every payload must arrive bit for bit; the collective
+    world's group stages on ``device``: at least one staged batch, and the
+    staged bytes are every message's payload (its bytes less the 8-byte
+    frame a send).  Returns each carrier's counters and host wall."""
+    import torch
+
+    from repro_torch.core.comm import ResourceLimits
+    from repro_torch.core.comm.collective import FRAME_OVERHEAD, CollectiveParcelport, collective_group_for
+    from repro_torch.core.harness import transport_stats
+    from repro_torch.core.parcelport import World
+    from repro_torch.core.variants import VARIANTS, make_parcelport_factory, max_devices
+
+    total = sum(len(p) for p in payloads)
+    out = {}
+    for name in PP_CARRIERS:
+        factory, fabric_kwargs = make_parcelport_factory(name), None
+        if name == "collective":
+            cfg = VARIANTS[name]
+
+            def factory(loc, fab, cfg=cfg):  # the world's one group, staged on the card
+                collective_group_for(fab, cfg.ndevices, stage="device", device=device)
+                return CollectiveParcelport(loc, fab, cfg)
+        elif name.startswith("shmem"):
+            fabric_kwargs = {"limits": ResourceLimits(bounce_buffer_size=max(len(p) for p in payloads) + (1 << 20),
+                                                      recv_slots=PP_SHMEM_SLOTS)}
+        world = World(2, factory, devices_per_rank=max_devices(name), fabric_kwargs=fabric_kwargs)
+        try:
+            got: list = []
+            for loc in world.localities:
+                loc.register_action("sink", lambda *a, _g=got: _g.append(a))
+            t0 = time.monotonic()
+            for i, p in enumerate(payloads):
+                world.localities[i % 2].async_action((i + 1) % 2, "sink", p)
+            world.drain(max_rounds=100_000)
+            wall = time.monotonic() - t0
+            st = transport_stats(world)
+            staged_on = getattr(getattr(world.fabric, "_collective_group", None), "device", None)
+        except Exception as exc:  # noqa: BLE001 - a drain that cannot quiesce raises
+            fail(f"phase 7(b): {name} did not carry the card's payloads: {exc!r}")
+        finally:
+            world.close()
+        intact = _pp_delivered(got) == sorted(bytes(p) for p in payloads)
+        out[name] = dict(messages=st.messages, eager=st.eager_msgs, rendezvous=st.rendezvous_msgs, sends=st.sends,
+                         puts=st.puts, bytes=st.bytes, staged_batches=st.staged_batches, staged_bytes=st.staged_bytes,
+                         wall_s=wall, mb_s=total / wall / 1e6)
+        print(f"phase 7(b) {name}{f' (staged on {staged_on})' if staged_on is not None else ''}: "
+              f"{len(payloads)} payloads of {[len(p) for p in payloads]} bytes arrived bit for bit: {intact}; "
+              f"messages={st.messages} eager={st.eager_msgs} rendezvous={st.rendezvous_msgs} sends={st.sends} "
+              f"puts={st.puts} bytes={st.bytes} staged_batches={st.staged_batches} staged_bytes={st.staged_bytes} "
+              f"host wall={wall} s ({total / wall / 1e6} MB/s)")
+        if not intact:
+            fail(f"phase 7(b): {name} delivered {len(got)} payloads, not the sent bytes")
+        if name == "collective":
+            if staged_on is None or staged_on.type != torch.device(device).type:
+                fail(f"phase 7(b): the collective group staged on {staged_on}, not on {device}")
+            if st.staged_batches < 1 or st.staged_bytes != st.bytes - FRAME_OVERHEAD * st.sends:
+                fail(f"phase 7(b): staged {st.staged_batches} batches of {st.staged_bytes} bytes; want >= 1 batch "
+                     f"and bytes - {FRAME_OVERHEAD} x sends = {st.bytes - FRAME_OVERHEAD * st.sends}")
+    return out
+
+
+def parcelport_elastic() -> dict:
+    """Phase 7(c): lci_eprg0_2 with real threads — PP_ELASTIC_PARCELS
+    parcels delivered, each elastic pool within (0, 2) throughout, 0 after
+    close, and the live threads (and the port's worker census) back to
+    where they were."""
+    import threading
+
+    from repro_torch.core.comm.membership import live_worker_count
+    from repro_torch.core.parcelport import World
+    from repro_torch.core.variants import VARIANTS, make_parcelport_factory, max_devices
+
+    name = "lci_eprg0_2"
+    lo, hi = VARIANTS[name].elastic_progress
+    base, census = threading.active_count(), live_worker_count()
+    world = World(2, make_parcelport_factory(name), devices_per_rank=max_devices(name))
+    sizes = []
+    try:
+        got: list = []
+        world.localities[1].register_action("sink", lambda *a: got.append(a))
+        for i in range(PP_ELASTIC_PARCELS):
+            world.localities[0].async_action(1, "sink", b"x" * (64 + i))
+            sizes.append([loc.parcelport._pw_pool.size() for loc in world.localities])
+        world.drain(max_rounds=100_000)
+        sizes.append([loc.parcelport._pw_pool.size() for loc in world.localities])
+        delivered = _pp_delivered(got) == sorted(b"x" * (64 + i) for i in range(PP_ELASTIC_PARCELS))
+    finally:
+        world.close()
+    after = [loc.parcelport._pw_pool.size() for loc in world.localities]
+    threads = threading.active_count()
+    in_bounds = all(lo <= n <= hi for row in sizes for n in row)
+    print(f"phase 7(c) {name}: delivered {len(got)}/{PP_ELASTIC_PARCELS} bit for bit: {delivered}; pool sizes seen "
+          f"{sorted({n for row in sizes for n in row})} within ({lo}, {hi}): {in_bounds}; after close {after}; "
+          f"threads {base} -> {threads}; worker census {census} -> {live_worker_count()}")
+    if not (delivered and in_bounds and after == [0, 0] and threads <= base + 1 and live_worker_count() == census):
+        fail(f"phase 7(c): {name} delivered {delivered}, pool in bounds {in_bounds}, after close {after}, "
+             f"threads {base} -> {threads}")
+    return {"pool_sizes": sorted({n for row in sizes for n in row}), "threads": (base, threads)}
+
+
+def parcelport_path(kernels, payloads, device) -> dict:
+    """Phase 7: parts (a), (b) and (c) with every kernel's count set to 0
+    just before and read just after (the stack launches none).  Returns
+    the launches."""
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    parcelport_gate()
+    parcelport_carry(payloads, device)
+    parcelport_elastic()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"phase 7: parcelport stack done in {time.monotonic() - t0} s (host wall); "
+          + " ".join(f"{name}.launches={n}" for name, n in launches.items()))
+    if any(launches.values()):
+        fail(f"phase 7: the parcelport stack launched kernels: {launches}")
+    return launches
+
 
 def main() -> int:
     import torch
@@ -2007,7 +2267,16 @@ def main() -> int:
               f"plain={t_plain} ms torch.bmm={t_lib} ms (device {d_lib} ms) bound={gbound} ms ({gbound_by}); "
               f"host a call under inference_mode: wrapper {h_kernel} us, GroupedMatmulFn {h_fn} us")
 
-    # 7. the record ---------------------------------------------------------------
+    # 7. the parcelport stack: the protocol gate, the card's bytes, elastic ---
+    from repro_torch.core.comm.wire import KIND_Q8, parse_grad_header
+
+    if set(PP_PAYLOADS) != {"q8", "rsnp"}:
+        fail(f"phase 7: phases 4c and 5 kept {sorted(PP_PAYLOADS)}, want the q8 wire slice and an RSNP snapshot")
+    if parse_grad_header(PP_PAYLOADS["q8"])[0] != KIND_Q8 or PP_PAYLOADS["rsnp"][:4] != b"RSNP":
+        fail("phase 7: the kept payloads are not a KIND_Q8 wire and an RSNP snapshot")
+    by_path["parcelport stack"] = parcelport_path(kernels, [PP_PAYLOADS["q8"], PP_PAYLOADS["rsnp"]], "cuda")
+
+    # 8. the record ---------------------------------------------------------------
     g_kernel, g_plain, g_lib, gbound, gbound_by, g_device, g_lib_device = gmm_ms[GMM_PREFILL_UP][:7]
     t_kernel, t_plain, t_lib, sbound, sbound_by, t_device = ssd_ms[SSD_MAMBA2][:6]
     fl = flash_ms[SLICE_CASE]

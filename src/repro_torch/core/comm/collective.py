@@ -1,6 +1,6 @@
 """The serving hand-off over the paper's CommInterface verbs.
 
-Port of ``repro/core/comm/collective.py`` without the parcelport:
+Port of ``repro/core/comm/collective.py``:
 
 * :class:`CollectiveGroup` — the transport: ``(rank, device)`` endpoints
   exchanging byte messages, bounded by one shared
@@ -24,16 +24,21 @@ Port of ``repro/core/comm/collective.py`` without the parcelport:
   :class:`~.base.InjectionThrottle` parking on both sides, and responses
   over ``post_put_signal`` wherever the server endpoint's capabilities
   advertise a one-sided put.  N channels share one group in the fleet.
+* :class:`CollectiveParcelport` — the LCI parcelport's protocol logic
+  (eager/rendezvous selection, aggregation, backpressure throttle, the
+  shared :class:`~.progress.ProgressEngine`) over CollectiveComm endpoints
+  instead of LCI devices: the ``collective`` variant (plus the
+  ``collective_prg{n}`` family).  :func:`collective_group_for` caches one
+  group per fabric, so a world whose first call asks for
+  ``stage='device'`` moves every parcelport drain through the card.
 """
 from __future__ import annotations
 
 import threading
 from collections import deque
-from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 from .base import InjectionThrottle
-from .completion import LCRQueue
 from .interface import (
     Capabilities,
     CompletionTarget,
@@ -47,36 +52,22 @@ from .resources import ResourceLimits
 __all__ = [
     "CollectiveGroup",
     "CollectiveComm",
+    "CollectiveParcelport",
     "CommChannel",
-    "FabricStats",
+    "collective_group_for",
     "TAG_REQUEST",
     "TAG_RESPONSE",
     "FRAME_OVERHEAD",
 ]
 
-# Per-message framing overhead (the reference's ``WIRE_OVERHEAD``): the tag word
-# the LCI device prepends to a two-sided payload, ``struct.calcsize("<q")``,
-# so eager-capacity arithmetic matches the reference's.
-FRAME_OVERHEAD = 8
+# Per-message framing overhead (the tag word): THE LCI device's wire
+# overhead, imported rather than restated, so eager-capacity arithmetic —
+# and therefore the engine's protocol decisions — cannot drift between
+# backends.
+from ..device import WIRE_OVERHEAD as FRAME_OVERHEAD  # noqa: E402
 
 TAG_REQUEST = 1  # serving hand-off: client -> server request bytes
 TAG_RESPONSE = 2  # serving hand-off: server -> client token batches
-
-
-@dataclass
-class FabricStats:
-    """Transport counters: the fields of ``repro.core.fabric.FabricStats``
-    that the collective and shared-memory transports move."""
-
-    messages: int = 0
-    bytes: int = 0
-    puts: int = 0  # one-sided puts (the shared-memory transport)
-    sends: int = 0
-    eager_msgs: int = 0  # messages shipped through the eager protocol
-    rendezvous_msgs: int = 0  # non-eager messages
-    backpressure_events: int = 0  # EAGAIN-style post rejections
-    staged_bytes: int = 0  # payload bytes moved through staged device buffers
-    staged_batches: int = 0  # device-buffer staging round trips (1 per drain)
 
 
 class _Transit:
@@ -97,7 +88,7 @@ class _Transit:
 
 class _Record:
     """What the backend hands back to its client — same duck type as
-    :class:`repro.core.device.CompletionRecord` so the parcelport's
+    :class:`repro_torch.core.device.CompletionRecord` so the parcelport's
     dispatch-by-kind works unchanged across backends."""
 
     __slots__ = ("op", "tag", "src_rank", "src_dev", "data", "ctx")
@@ -122,10 +113,12 @@ class _PostedRecv:
 class CollectiveGroup:
     """The collectives transport: ``n_ranks × devices_per_rank`` endpoints.
 
-    Injection bounds come from one :class:`ResourceLimits`; stats use the
-    fabric's :class:`FabricStats` shape.  ``stage='device'`` stages every
-    drain through a buffer on ``device`` (``cuda`` unless the caller asks
-    for the CPU)."""
+    Injection bounds come from one shared :class:`ResourceLimits` (the
+    same object the fabric consumes); stats use the fabric's
+    :class:`~repro_torch.core.fabric.FabricStats` shape so benchmark code
+    reads either transport through one accessor.  ``stage='device'``
+    stages every drain through a buffer on ``device`` (``cuda`` unless the
+    caller asks for the CPU)."""
 
     def __init__(
         self,
@@ -136,6 +129,8 @@ class CollectiveGroup:
         device: Any = None,
     ):
         assert stage in ("loopback", "device"), stage
+        from ..fabric import FabricStats  # stats shape shared with the fabric
+
         self.n_ranks = n_ranks
         self.devices_per_rank = max(1, devices_per_rank)
         self.limits = limits or ResourceLimits()
@@ -146,8 +141,9 @@ class CollectiveGroup:
 
             self.device = resolve_device(device)
         self.stats = FabricStats()
-        # Endpoints on different ranks share these counters — every update
-        # takes this lock (the fabric guards its stats likewise).
+        # Endpoints on different ranks share these counters, and the
+        # collective_prg{n} family sweeps them from real threads — every
+        # update takes this lock (the fabric guards its stats likewise).
         self._stats_lock = threading.Lock()
         self._endpoints: Dict[Tuple[int, int], CollectiveComm] = {}
         for r in range(n_ranks):
@@ -157,6 +153,12 @@ class CollectiveGroup:
     def endpoint(self, rank: int, dev: int = 0) -> "CollectiveComm":
         return self._endpoints[(rank, dev)]
 
+    def _stage_payload(self, data: bytes) -> Any:
+        """Move one payload through the configured stage.  ``'device'``
+        rides the accelerator: host → device buffer → host, the one-host
+        degenerate form of an all-to-all over the collectives layer."""
+        return self._stage_batch([data])[0]
+
     def _stage_batch(self, datas: List[bytes]) -> List[Any]:
         """Move a whole progress drain through the stage at once.
 
@@ -164,8 +166,8 @@ class CollectiveGroup:
         one copy to the device and one back per drain (never one pair per
         message: the per-message software overhead the paper's data-plane
         argument is about, §5), sliced back into zero-copy views on
-        return.  :class:`FabricStats` counts the staged bytes and batches
-        (``staged_bytes`` / ``staged_batches``)."""
+        return.  :class:`~repro_torch.core.fabric.FabricStats` counts the
+        staged bytes and batches (``staged_bytes`` / ``staged_batches``)."""
         if self.stage == "loopback" or not datas:
             return datas
         import numpy as np
@@ -191,9 +193,26 @@ class CollectiveGroup:
         return out
 
 
+def collective_group_for(
+    fabric: Any, devices_per_rank: int = 1, stage: str = "loopback", device: Any = None
+) -> CollectiveGroup:
+    """The one :class:`CollectiveGroup` of a world, keyed on its fabric —
+    every locality's parcelport joins the same group, and the group draws
+    its bounds from ``fabric.limits`` (the shared resource model), so
+    ``lci_b{depth}``-style limits bind the collective transport too.  The
+    first call fixes ``stage`` and ``device``; later calls get that group."""
+    group = getattr(fabric, "_collective_group", None)
+    if group is None:
+        group = CollectiveGroup(
+            fabric.n_ranks, devices_per_rank=devices_per_rank, limits=fabric.limits, stage=stage, device=device
+        )
+        fabric._collective_group = group
+    return group
+
+
 class CollectiveComm:
     """One endpoint of the collectives transport — a full five-verb
-    :class:`~repro.core.comm.interface.CommInterface` backend.
+    :class:`~repro_torch.core.comm.interface.CommInterface` backend.
 
     A post claims a transit-ring slot (``EAGAIN_QUEUE`` when
     ``limits.send_queue_depth`` is exhausted) and, for eager messages, one
@@ -380,6 +399,26 @@ class CollectiveComm:
         complete(pr.comp, _Record(op="recv", tag=tag, src_rank=src, data=data, ctx=pr.ctx))
 
 
+from ..lci_parcelport import LCIParcelport  # noqa: E402  (no cycle: the
+# lci parcelport imports comm.progress/resources only, never this module)
+
+
+class CollectiveParcelport(LCIParcelport):
+    """The LCI parcelport's protocol logic over CollectiveComm endpoints.
+
+    Defined by *difference*: only device creation changes.  Because the
+    endpoints advertise ``one_sided_put=False``, the inherited
+    capability-driven selection drops the header path to two-sided
+    send/recv automatically — no protocol code is duplicated, which is the
+    paper's whole point about the abstraction (§2.3).  The engine-parity
+    suite asserts the decision traces match the LCI backend's bit for bit.
+    """
+
+    def _make_devices(self, fabric: Any, config: Any) -> List[CollectiveComm]:
+        group = collective_group_for(fabric, devices_per_rank=config.ndevices)
+        return [group.endpoint(self.locality.rank, d) for d in range(config.ndevices)]
+
+
 class CommChannel:
     """The serving stack's request/response hand-off over CommInterface
     verbs (client = rank 0, server = rank 1 unless given).
@@ -418,6 +457,8 @@ class CommChannel:
         response_cq: Any = None,
         device: Any = None,
     ):
+        from ..completion import LCRQueue
+
         assert backend in ("collective", "shmem"), backend
         self.limits = limits or ResourceLimits()
         if group is not None:

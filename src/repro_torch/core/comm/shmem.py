@@ -22,10 +22,13 @@ Slot/buffer accounting draws from one shared
 :class:`~repro_torch.core.comm.resources.ResourceLimits`
 (``recv_slots`` sizes the receiver-owned slot array,
 ``bounce_buffer_size`` the slot payload capacity, ``send_queue_depth``
-the sender's transit ring), and stats use the collective transport's
-:class:`~repro_torch.core.comm.collective.FabricStats`.  The reference's
-``ShmemParcelport`` (the LCI parcelport over these endpoints) waits for
-the parcelport layer of the port.
+the sender's transit ring), stats use the fabric's
+:class:`~repro_torch.core.fabric.FabricStats`, and the backend is driven by
+the ONE shared :class:`~repro_torch.core.comm.progress.ProgressEngine` —
+the :class:`ShmemParcelport` below changes *only* device creation, exactly
+like the collective backend.  Its three variants are the ladder's rungs:
+``shmem`` (two-sided emulation), ``shmem_put`` (put-signal) and
+``shmem_putq`` (put + queue-completion).
 
 Segment backing: ``'anon'`` (default) maps an anonymous shared page range
 (``mmap(-1, n)``) — real shared memory, reclaimed by plain GC;
@@ -45,7 +48,6 @@ from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 from ...analysis.sanitizer import make_lock, note_access
-from .collective import FRAME_OVERHEAD, FabricStats
 from .interface import (
     Capabilities,
     CompletionTarget,
@@ -59,11 +61,17 @@ __all__ = [
     "ShmemSegment",
     "ShmemGroup",
     "ShmemComm",
+    "ShmemParcelport",
     "shmem_group_for",
     "live_segments",
     "DEFAULT_SLOTS",
     "FRAME_OVERHEAD",
 ]
+
+# Per-message framing overhead (the tag word) for the two-sided emulation
+# rung — imported from THE device constant so eager-capacity arithmetic
+# cannot drift between backends.  Puts add nothing (no tag, no matching).
+from ..device import WIRE_OVERHEAD as FRAME_OVERHEAD  # noqa: E402
 
 #: receiver-owned slots per endpoint when ``limits.recv_slots`` is 0
 #: (the reference LCI device's pre-post depth)
@@ -279,9 +287,10 @@ class ShmemGroup:
     ``completion_mode`` selects how remote put completions are announced —
     ``'signal'`` (raised per-slot flags, scanned) or ``'queue'``
     (descriptors into the receiver's completion ring); slot and ring
-    bounds come from ONE shared :class:`ResourceLimits`, and stats use
-    :class:`~repro_torch.core.comm.collective.FabricStats`, the collective
-    transport's, so code reads either transport through one accessor."""
+    bounds come from ONE shared :class:`ResourceLimits` (the same object
+    the fabric consumes), and stats use the fabric's
+    :class:`~repro_torch.core.fabric.FabricStats` shape so code reads any
+    transport through one accessor."""
 
     def __init__(
         self,
@@ -292,6 +301,8 @@ class ShmemGroup:
         backing: str = "anon",
     ):
         assert completion_mode in ("signal", "queue"), completion_mode
+        from ..fabric import FabricStats  # stats shape shared with the fabric
+
         self.n_ranks = n_ranks
         self.devices_per_rank = max(1, devices_per_rank)
         self.limits = limits or ResourceLimits()
@@ -410,7 +421,7 @@ class ShmemComm:
         self.dev_index = dev_index
         self.segment = group.segments[(rank, dev_index)]  # this endpoint's RX slab
         #: completion object remote puts land in (the dynamic-put target);
-        #: registered by the client (the channel) — the capability is
+        #: registered by the client (parcelport or channel) — the capability is
         #: advertised only once a target exists, like the LCI device.
         self.put_target_comp: Any = None
         self._send_lock = make_lock("ShmemComm._send_lock")
@@ -428,7 +439,7 @@ class ShmemComm:
     def capabilities(self) -> Capabilities:
         """Honest capabilities: one-sided put is real here — advertised
         once a put-target completion object is registered (the selection
-        surface the channel consults, §2.3)."""
+        surface the parcelport and the channel consult, §2.3)."""
         return Capabilities(
             one_sided_put=self.put_target_comp is not None,
             queue_completion=True,
@@ -666,3 +677,32 @@ class ShmemComm:
 
     def _deliver_recv(self, pr: _PostedRecv, src: int, tag: int, data: bytes) -> None:
         complete(pr.comp, _Record(op="recv", tag=tag, src_rank=src, data=data, ctx=pr.ctx))
+
+
+from ..lci_parcelport import LCIParcelport  # noqa: E402  (no cycle: the
+# lci parcelport imports comm.progress/resources only, never this module)
+
+
+class ShmemParcelport(LCIParcelport):
+    """The LCI parcelport's protocol logic over shared-memory endpoints.
+
+    Defined by *difference*: only device creation changes — the group's
+    completion mode comes from ``header_comp`` (``'sync'`` → raised-signal
+    discovery, ``'queue'`` → descriptor-ring completion), and each
+    endpoint's put target is registered against the parcelport's
+    completion queue, which is what makes ``capabilities.one_sided_put``
+    honest.  With ``header_mode='put'`` the inherited capability-driven
+    selection rides the REAL one-sided path; with ``'sendrecv'`` the same
+    endpoints run the two-sided emulation rung — the full capability
+    ladder from one protocol engine (§2.3)."""
+
+    def _make_devices(self, fabric: Any, config: Any) -> List[ShmemComm]:
+        group = shmem_group_for(
+            fabric,
+            devices_per_rank=config.ndevices,
+            completion_mode="signal" if config.header_comp == "sync" else "queue",
+        )
+        endpoints = [group.endpoint(self.locality.rank, d) for d in range(config.ndevices)]
+        for d, ep in enumerate(endpoints):
+            ep.put_target_comp = self._cq_for(d)
+        return endpoints

@@ -25,7 +25,7 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 
 from ..configs.base import ArchConfig
-from ..core.comm.completion import LCRQueue
+from ..core.completion import LCRQueue
 from ..core.executor import AMTExecutor
 
 __all__ = ["SyntheticLM", "PrefetchingLoader"]

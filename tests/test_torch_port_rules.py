@@ -50,7 +50,8 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "torch_serve_profile.py", REPO / "tools" / "torch_train_profile.py",
-    REPO / "tools" / "torch_ssd_bench.py", REPO / "tools" / "torch_decode_rows.py"]
+    REPO / "tools" / "torch_ssd_bench.py", REPO / "tools" / "torch_decode_rows.py",
+    REPO / "tools" / "torch_profiler_sessions.py"]
 
 
 def _imported_roots(path: Path):
@@ -75,10 +76,18 @@ def test_port_files_exist():
                 "src/repro_torch/train/trainer.py", "src/repro_torch/launch/train.py",
                 "src/repro_torch/checkpoint/manager.py", "src/repro_torch/checkpoint/snapshot.py", "chip_smoke.py",
                 "src/repro_torch/serve/fleet.py", "src/repro_torch/core/comm/shmem.py",
-                "src/repro_torch/analysis/sanitizer.py"):
+                "src/repro_torch/analysis/sanitizer.py", "src/repro_torch/core/completion.py",
+                "src/repro_torch/core/device.py", "src/repro_torch/core/fabric.py", "src/repro_torch/core/harness.py",
+                "src/repro_torch/core/lci_parcelport.py", "src/repro_torch/core/mpi_parcelport.py",
+                "src/repro_torch/core/mpi_sim.py", "src/repro_torch/core/parcel.py",
+                "src/repro_torch/core/parcelport.py", "src/repro_torch/core/variants.py",
+                "src/repro_torch/core/comm/registry.py"):
         assert rel in names
+    assert "src/repro_torch/core/comm/completion.py" not in names  # the queues live at the reference's path
     for test in ("test_torch_train.py", "test_torch_train_families.py", "test_torch_checkpoint.py",
-                 "test_torch_fleet.py", "test_torch_membership.py", "test_torch_shmem.py"):  # CPU parity with JAX
+                 "test_torch_fleet.py", "test_torch_membership.py", "test_torch_shmem.py",
+                 "test_torch_fabric_device.py", "test_torch_parcel.py", "test_torch_completion.py",
+                 "test_torch_parcelports.py", "test_torch_protocol_engine.py"):  # CPU parity with JAX
         assert (REPO / "tests" / test).is_file()
     for cu in ("flash_attention", "ssd_scan", "moe_gmm", "grad_pack"):
         assert (REPO / "src" / "repro_torch" / "kernels" / "csrc" / f"{cu}.cu").is_file()

@@ -34,7 +34,7 @@ from repro_torch.core.comm import (
     UnsupportedCapabilityError,
 )
 from repro_torch.core.comm.collective import CollectiveGroup
-from repro_torch.core.comm.completion import LCRQueue
+from repro_torch.core.completion import LCRQueue
 from repro_torch.core.comm.membership import Membership
 from repro_torch.core.comm.shmem import DEFAULT_SLOTS, ShmemComm, ShmemGroup, live_segments, shmem_group_for
 
