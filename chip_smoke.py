@@ -114,7 +114,21 @@ nothing of the JAX package.  In order, it:
    bit, with the staged bytes every message's payload; (c) the
    ``lci_eprg0_2`` elastic pool with real threads, within its bounds and
    closed clean; the walls printed are host walls;
-8. prints one JSON line of the kernels and, last, the device line.
+8. runs the port's discrete-event simulator (``repro_torch.amtsim``, host
+   code: it launches no kernel) against the same stack: (a) for ``lci``,
+   ``mpi`` and ``shmem_putq``, the DES decision trace at the sizes of
+   phase 7(b)'s two card-made payloads equals the decision trace of a
+   functional world carrying those bytes (sent one at a time, no
+   zero-copy chunk, a drain after each, as the reference's engine-parity
+   test runs it); (b) the paper's verdicts over the DES, at the sizes the
+   reference's tests use and at ``octotiger``'s defaults: flood ``lci`` >
+   ``mpi_a`` > ``mpi`` at 8 B, aggregation's large-message gain under half
+   its small-message gain, ``chains`` latency ``lci`` < ``mpi``, ``lci`` >=
+   ``try_progress`` >= ``block``, ``lci_d4`` > 1.5 x ``lci_d1``,
+   Octo-Tiger ``lci`` < ``mpi``, Delta below Expanse; the rates printed
+   are simulated values of the paper's clusters (the ``expanse`` and
+   ``delta`` cost models), never times on this card;
+9. prints one JSON line of the kernels and, last, the device line.
 
 It exits non-zero, printing no result, without a card or outside a
 checkout, and on any failed check.
@@ -1915,9 +1929,27 @@ PP_SHMEM_SLOTS = 4
 PP_ELASTIC_PARCELS = 40
 PP_PAYLOADS = {}  # "q8" and "rsnp", filled by train_path and fleet_run
 
+# Phase 8, the DES over the port.  (a) DES_CARRIERS' decision traces at the
+# sizes of phase 7(b)'s payloads, the DES's against a functional world's
+# carrying the bytes (shared-memory slots sized as in 7(b)).  (b) The
+# paper's verdicts at the sizes of tests/test_amtsim.py, Octo-Tiger at its
+# defaults (8 nodes, 16 workers, 512 subgrids, 5 steps).  The numbers are
+# simulated values of the paper's clusters (amtsim/costs.py), not times on
+# the card.
+DES_CARRIERS = ("lci", "mpi", "shmem_putq")
+
 
 def _pp_delivered(got) -> list:
     return sorted(bytes(a[0]) for a in got)
+
+
+def _pp_shmem_kwargs(payloads) -> dict:
+    """A shared-memory world's fabric kwargs: slots sized for the largest
+    payload (the default 64 KiB slot holds a token batch)."""
+    from repro_torch.core.comm import ResourceLimits
+
+    return {"limits": ResourceLimits(bounce_buffer_size=max(len(p) for p in payloads) + (1 << 20),
+                                     recv_slots=PP_SHMEM_SLOTS)}
 
 
 def _pp_trace(name, sizes) -> tuple:
@@ -2011,7 +2043,6 @@ def parcelport_carry(payloads, device) -> dict:
     frame a send).  Returns each carrier's counters and host wall."""
     import torch
 
-    from repro_torch.core.comm import ResourceLimits
     from repro_torch.core.comm.collective import FRAME_OVERHEAD, CollectiveParcelport, collective_group_for
     from repro_torch.core.harness import transport_stats
     from repro_torch.core.parcelport import World
@@ -2028,8 +2059,7 @@ def parcelport_carry(payloads, device) -> dict:
                 collective_group_for(fab, cfg.ndevices, stage="device", device=device)
                 return CollectiveParcelport(loc, fab, cfg)
         elif name.startswith("shmem"):
-            fabric_kwargs = {"limits": ResourceLimits(bounce_buffer_size=max(len(p) for p in payloads) + (1 << 20),
-                                                      recv_slots=PP_SHMEM_SLOTS)}
+            fabric_kwargs = _pp_shmem_kwargs(payloads)
         world = World(2, factory, devices_per_rank=max_devices(name), fabric_kwargs=fabric_kwargs)
         try:
             got: list = []
@@ -2120,6 +2150,149 @@ def parcelport_path(kernels, payloads, device) -> dict:
           + " ".join(f"{name}.launches={n}" for name, n in launches.items()))
     if any(launches.values()):
         fail(f"phase 7: the parcelport stack launched kernels: {launches}")
+    return launches
+
+
+def des_trace(name, sizes) -> list:
+    """The port's DES decision trace of ``name`` over ``sizes``, chained
+    sequentially (each send spawned by the previous delivery)."""
+    from repro_torch.amtsim.parcelport_sim import SimWorld, Task, sim_config_for_variant
+
+    world = SimWorld(2, 4, sim_config_for_variant(name))
+    tr: list = []
+    world.engine.trace = tr
+    state = {"i": 0}
+
+    def send_next() -> None:
+        if state["i"] >= len(sizes):
+            world.stop()
+            return
+        op = world.make_parcel(0, 1, sizes[state["i"]], on_delivered=send_next)
+        state["i"] += 1
+        world.spawn(0, Task(action=lambda w, _op=op: world.send_parcel(w, _op)))
+
+    send_next()
+    world.run(until=5.0)
+    if not (world.stopped and state["i"] == len(sizes)):
+        fail(f"phase 8(a): the DES {name} delivered {state['i']} of {len(sizes)} sends")
+    return tr
+
+
+def functional_trace(name, payloads) -> list:
+    """The functional stack's decision trace of ``name`` carrying
+    ``payloads`` from rank 0 to rank 1, one at a time with a drain after
+    each, none of them a zero-copy chunk; every payload must arrive bit
+    for bit."""
+    from repro_torch.core.parcelport import World
+    from repro_torch.core.variants import make_parcelport_factory, max_devices
+
+    fabric_kwargs = _pp_shmem_kwargs(payloads) if name.startswith("shmem") else None
+    world = World(2, make_parcelport_factory(name), devices_per_rank=max_devices(name), fabric_kwargs=fabric_kwargs)
+    try:
+        tr: list = []
+        for loc in world.localities:
+            loc.parcelport.engine.trace = tr
+        got: list = []
+        world.localities[1].register_action("sink", lambda *a: got.append(a))
+        for p in payloads:
+            world.localities[0].async_action(1, "sink", p, zero_copy_threshold=1 << 30)
+            world.drain(max_rounds=100_000)
+    finally:
+        world.close()
+    if _pp_delivered(got) != sorted(bytes(p) for p in payloads):
+        fail(f"phase 8(a): the functional {name} world delivered {len(got)} payloads, not the sent bytes")
+    return tr
+
+
+def des_agreement(payloads) -> dict:
+    """Phase 8(a): for each of DES_CARRIERS the DES trace at the payloads'
+    sizes equals the functional world's carrying them.  Returns the
+    traces' lengths."""
+    sizes = [len(p) for p in payloads]
+    out = {}
+    for name in DES_CARRIERS:
+        des, fun = des_trace(name, sizes), functional_trace(name, payloads)
+        paths = [e[1] for e in des if e[0] in ("send", "header")]
+        print(f"phase 8(a) {name} at {sizes} bytes: DES trace {len(des)} decisions, functional {len(fun)}; "
+              f"protocol paths (send, header) {paths}; equal: {des == fun}")
+        if des != fun:
+            fail(f"phase 8(a): {name}: the DES trace {des} differs from the functional stack's {fun}")
+        out[name] = len(des)
+    return out
+
+
+def check_des_verdicts(r: dict) -> None:
+    """The paper's verdicts on phase 8(b)'s numbers; fails on any that
+    flips."""
+    small, large = r["flood_8"], r["flood_16k"]
+    gain_small, gain_large = small["mpi_a"] / small["mpi"], large["mpi_a"] / large["mpi"]
+    lad, octo = r["ladder"], r["octotiger"]
+    verdicts = {
+        "flood 8 B: lci > mpi_a > mpi": small["lci"] > small["mpi_a"] > small["mpi"],
+        "aggregation's 16 KiB gain < half its 8 B gain": gain_large < 0.5 * gain_small,
+        "chains latency: lci < mpi": r["chains"]["lci"] < r["chains"]["mpi"],
+        "flood: lci >= try_progress >= block": lad["lci"] >= lad["try_progress"] >= lad["block"],
+        "devices: lci_d4 > 1.5 x lci_d1": r["devices"]["lci_d4"] > 1.5 * r["devices"]["lci_d1"],
+        "Octo-Tiger: lci < mpi": octo["lci"] < octo["mpi"],
+        "flood lci: delta < expanse": r["platforms"]["delta"] < r["platforms"]["expanse"],
+    }
+    flipped = [k for k, ok in verdicts.items() if not ok]
+    print(f"phase 8(b): {len(verdicts) - len(flipped)} of {len(verdicts)} of the paper's verdicts hold"
+          + (f"; flipped: {flipped}" if flipped else ""))
+    if flipped:
+        fail(f"phase 8(b): the paper's verdicts flipped over the port's DES: {flipped}")
+
+
+def des_verdicts() -> dict:
+    """Phase 8(b): the DES runs behind the paper's verdicts, their
+    simulated numbers printed, then ``check_des_verdicts``.  Returns the
+    numbers."""
+    from repro_torch.amtsim.costs import DELTA, EXPANSE
+    from repro_torch.amtsim.workloads import chains, flood, octotiger
+
+    r = {
+        "flood_8": {v: flood(v, msg_size=8, nthreads=32, nmsgs=2000).rate for v in ("lci", "mpi", "mpi_a")},
+        "flood_16k": {v: flood(v, msg_size=16384, nthreads=32, nmsgs=1000).rate for v in ("lci", "mpi", "mpi_a")},
+        "chains": {v: chains(v, msg_size=8, nchains=8, nsteps=20, nthreads=8).elapsed for v in ("lci", "mpi")},
+        "ladder": {v: flood(v, msg_size=8, nthreads=32, nmsgs=1500).rate for v in ("block", "try_progress", "lci")},
+        "devices": {v: flood(v, msg_size=8, nthreads=32, nmsgs=2000).rate for v in ("lci_d1", "lci_d4")},
+        "octotiger": {v: octotiger(v).elapsed for v in ("lci", "mpi")},
+        "platforms": {p.name: flood("lci", msg_size=8, nthreads=32, nmsgs=1500, platform=p).rate
+                      for p in (EXPANSE, DELTA)},
+    }
+    sim = f"simulated, {EXPANSE.name} model"
+    print(f"phase 8(b) flood 8 B, 32 threads ({sim}): {r['flood_8']} parcels/s; "
+          f"lci/mpi {r['flood_8']['lci'] / r['flood_8']['mpi']}")
+    print(f"phase 8(b) flood 16 KiB, 32 threads ({sim}): {r['flood_16k']} parcels/s; "
+          f"lci/mpi {r['flood_16k']['lci'] / r['flood_16k']['mpi']}")
+    print(f"phase 8(b) chains 8 B, 8 chains x 20 hops ({sim}): one-way hop {r['chains']} s; "
+          f"lci/mpi {r['chains']['lci'] / r['chains']['mpi']}")
+    print(f"phase 8(b) multithreading ladder, flood 8 B ({sim}): {r['ladder']} parcels/s")
+    print(f"phase 8(b) devices, flood 8 B ({sim}): {r['devices']} parcels/s; "
+          f"lci_d4/lci_d1 {r['devices']['lci_d4'] / r['devices']['lci_d1']}")
+    print(f"phase 8(b) Octo-Tiger, 8 nodes x 16 workers, 512 subgrids, 5 steps ({sim}): {r['octotiger']} s; "
+          f"lci/mpi {r['octotiger']['lci'] / r['octotiger']['mpi']}")
+    print(f"phase 8(b) flood lci 8 B (simulated, {EXPANSE.name} and {DELTA.name} models): "
+          f"{r['platforms']} parcels/s; {DELTA.name}/{EXPANSE.name} "
+          f"{r['platforms'][DELTA.name] / r['platforms'][EXPANSE.name]}")
+    check_des_verdicts(r)
+    return r
+
+
+def des_path(kernels, payloads) -> dict:
+    """Phase 8: parts (a) and (b) with every kernel's count set to 0 just
+    before and read just after (the DES launches none).  Returns the
+    launches."""
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    des_agreement(payloads)
+    des_verdicts()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"phase 8: the DES done in {time.monotonic() - t0} s (host wall); "
+          + " ".join(f"{name}.launches={n}" for name, n in launches.items()))
+    if any(launches.values()):
+        fail(f"phase 8: the DES launched kernels: {launches}")
     return launches
 
 
@@ -2276,7 +2449,10 @@ def main() -> int:
         fail("phase 7: the kept payloads are not a KIND_Q8 wire and an RSNP snapshot")
     by_path["parcelport stack"] = parcelport_path(kernels, [PP_PAYLOADS["q8"], PP_PAYLOADS["rsnp"]], "cuda")
 
-    # 8. the record ---------------------------------------------------------------
+    # 8. the DES: its traces against the stack's on the card's bytes, verdicts -
+    by_path["DES"] = des_path(kernels, [PP_PAYLOADS["q8"], PP_PAYLOADS["rsnp"]])
+
+    # 9. the record ---------------------------------------------------------------
     g_kernel, g_plain, g_lib, gbound, gbound_by, g_device, g_lib_device = gmm_ms[GMM_PREFILL_UP][:7]
     t_kernel, t_plain, t_lib, sbound, sbound_by, t_device = ssd_ms[SSD_MAMBA2][:6]
     fl = flash_ms[SLICE_CASE]

@@ -17,6 +17,7 @@ __all__ = [
     "Params",
     "dense_init",
     "rms_norm",
+    "layer_norm",
     "rope_frequencies",
     "apply_rope",
     "ffn_init",
@@ -44,6 +45,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * weight.float()).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm (biased variance) computed in f32, cast back to ``x``'s
+    dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.float() + bias.float()).to(dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:

@@ -394,6 +394,10 @@ class InferenceServer:
             raise ValueError(f"unknown transport {cfg.transport!r}")
 
     @property
+    def cache(self):
+        return self.core.cache
+
+    @property
     def steps(self) -> int:
         return self.core.steps
 
@@ -519,6 +523,10 @@ class InferenceServer:
         return True
 
     # ------------------------------------------------------------- lifecycle
+    def pending_requests(self) -> int:
+        """Requests admitted server-side but not yet slotted."""
+        return len(self._pending)
+
     def idle(self) -> bool:
         """Nothing slotted, nothing pending, nothing in flight on the
         hand-off channel."""

@@ -89,3 +89,23 @@ def test_dense_init_is_a_truncated_fan_in_normal():
     again = tl.dense_init(torch.Generator().manual_seed(0), (256, 64), torch.float32)
     assert torch.equal(w, again)
     assert tl.embed_init(gen, 10, 4, torch.bfloat16).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 64), (1, 3, 16)])
+def test_layer_norm_matches(shape):
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=shape).astype(np.float32) * 3 + 1.5
+    w = rng.normal(size=shape[-1:]).astype(np.float32)
+    b = rng.normal(size=shape[-1:]).astype(np.float32)
+    _close(jl.layer_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), 1e-5),
+           tl.layer_norm(_t(x), _t(w), _t(b), 1e-5))
+
+
+def test_layer_norm_computes_in_f32_and_casts_back():
+    """bf16 in, bf16 out, from f32 statistics: the port's bits are JAX's."""
+    rng = np.random.default_rng(3)
+    x, w, b = (rng.normal(size=s).astype(np.float32) for s in ((3, 32), (32,), (32,)))
+    out = tl.layer_norm(_t(x).bfloat16(), _t(w).bfloat16(), _t(b).bfloat16())
+    assert out.dtype == torch.bfloat16
+    ref = jl.layer_norm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16))
+    assert np.array_equal(np.asarray(ref, np.float32), out.float().numpy())

@@ -1,8 +1,8 @@
 """Rules the PyTorch/CUDA port keeps.
 
-* Nothing under ``src/repro_torch/``, and not ``chip_smoke.py``,
-  ``tools/torch_serve_profile.py``, ``tools/torch_train_profile.py`` or
-  ``tools/torch_ssd_bench.py``,
+* Nothing under ``src/repro_torch/``, and not ``chip_smoke.py`` or a
+  port tool (``tools/torch_*.py``: the profilers, the SSD bench, the
+  decode-row and profiler-session checks, the analyzer's launcher),
   imports ``jax``, ``ml_dtypes`` or the JAX package ``repro``
   (``repro_torch`` is the port).
 * Entry points run on ``cuda`` unless the caller asks for the CPU; without
@@ -51,7 +51,7 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "torch_serve_profile.py", REPO / "tools" / "torch_train_profile.py",
     REPO / "tools" / "torch_ssd_bench.py", REPO / "tools" / "torch_decode_rows.py",
-    REPO / "tools" / "torch_profiler_sessions.py"]
+    REPO / "tools" / "torch_profiler_sessions.py", REPO / "tools" / "torch_analyze.py"]
 
 
 def _imported_roots(path: Path):
@@ -81,13 +81,20 @@ def test_port_files_exist():
                 "src/repro_torch/core/lci_parcelport.py", "src/repro_torch/core/mpi_parcelport.py",
                 "src/repro_torch/core/mpi_sim.py", "src/repro_torch/core/parcel.py",
                 "src/repro_torch/core/parcelport.py", "src/repro_torch/core/variants.py",
-                "src/repro_torch/core/comm/registry.py"):
+                "src/repro_torch/core/comm/registry.py", "src/repro_torch/amtsim/costs.py",
+                "src/repro_torch/amtsim/des.py", "src/repro_torch/amtsim/parcelport_sim.py",
+                "src/repro_torch/amtsim/workloads.py", "src/repro_torch/analysis/facts.py",
+                "src/repro_torch/analysis/callgraph.py", "src/repro_torch/analysis/registry.py",
+                "src/repro_torch/analysis/passes.py", "src/repro_torch/analysis/gates.py",
+                "src/repro_torch/analysis/cli.py", "tools/torch_analyze.py"):
         assert rel in names
     assert "src/repro_torch/core/comm/completion.py" not in names  # the queues live at the reference's path
     for test in ("test_torch_train.py", "test_torch_train_families.py", "test_torch_checkpoint.py",
                  "test_torch_fleet.py", "test_torch_membership.py", "test_torch_shmem.py",
                  "test_torch_fabric_device.py", "test_torch_parcel.py", "test_torch_completion.py",
-                 "test_torch_parcelports.py", "test_torch_protocol_engine.py"):  # CPU parity with JAX
+                 "test_torch_parcelports.py", "test_torch_protocol_engine.py", "test_torch_amtsim.py",
+                 "test_torch_progress_engine.py", "test_torch_analysis.py",
+                 "test_torch_sanitize_session.py"):  # CPU parity with JAX
         assert (REPO / "tests" / test).is_file()
     for cu in ("flash_attention", "ssd_scan", "moe_gmm", "grad_pack"):
         assert (REPO / "src" / "repro_torch" / "kernels" / "csrc" / f"{cu}.cu").is_file()

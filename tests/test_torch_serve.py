@@ -226,3 +226,46 @@ def test_launcher_serves_ssm_and_hybrid_on_the_cpu(arch, capsys):
                      "--max-new", "3", "--prompt-len", "20"])
     assert rc == 0
     assert "requests=4/4" in capsys.readouterr().out
+
+
+def _cache_err(jc, tc) -> float:
+    """Largest |JAX - port| over the cache's leaves; position tags exactly."""
+    assert set(jc) == set(tc)
+    errs = [0.0]
+    for key, jv in jc.items():
+        if isinstance(jv, dict):
+            errs.append(_cache_err(jv, tc[key]))
+        elif key == "pos":
+            assert np.array_equal(np.asarray(jv), tc[key].numpy())
+        else:
+            errs.append(float(np.max(np.abs(np.asarray(jv, np.float32) - tc[key].float().numpy()))))
+    return max(errs)
+
+
+def test_cache_and_pending_requests_match_the_jax_server(model):
+    """The server's ``cache`` and ``pending_requests()`` against the
+    reference's, step by step: 7 requests through 4 slots, so requests
+    wait pending while others are slotted, and every row is recycled."""
+    jcfg, tcfg, jp, tp = model
+    mp = pytest.MonkeyPatch()
+    mp.setenv("REPRO_KERNELS", "pallas-interpret")
+    try:
+        js = JServer(jcfg, jp, JServeConfig(slots=4, context=160, max_prefill=128, transport="inline"))
+        ts = InferenceServer(tcfg, tp, ServeConfig(slots=4, context=160, max_prefill=128, transport="inline"))
+        for p, m in TRACE:
+            js.submit(p, max_new=m)
+            ts.submit(p, max_new=m)
+        assert ts.pending_requests() == js.pending_requests() == len(TRACE)
+        assert ts.cache is ts.core.cache
+        seen = set()
+        for _ in range(200):
+            jstep, tstep = js.step(), ts.step()
+            assert jstep == tstep
+            assert ts.pending_requests() == js.pending_requests()
+            assert _cache_err(js.cache, ts.cache) <= 1e-4
+            seen.add((ts.pending_requests() > 0, ts.core.active()))
+            if js.idle() and ts.idle():
+                break
+    finally:
+        mp.undo()
+    assert (True, True) in seen and ts.pending_requests() == 0  # pending beside slotted, then drained
