@@ -128,7 +128,27 @@ nothing of the JAX package.  In order, it:
    Octo-Tiger ``lci`` < ``mpi``, Delta below Expanse; the rates printed
    are simulated values of the paper's clusters (the ``expanse`` and
    ``delta`` cost models), never times on this card;
-9. prints one JSON line of the kernels and, last, the device line.
+9. shards: (a) ``tinyllama-1.1b``'s train step (full width, bf16, B=4,
+   S=1024, remat "dots", 2 steps from phase 5's initial parameters) with
+   its state and batch placed as DTensors by the spec trees on a 1×1
+   ("data", "model") mesh over a one-rank NCCL group, under
+   ``make_rules``: the losses and every state leaf bit for bit the
+   unsharded step's (one device runs the same local ops), the flash
+   kernel (through ``local_map`` inside ``FlashAttentionFn``'s route)
+   launching as often as unsharded; then the ``seq_act`` forward of
+   ``qwen2-7b`` and ``minicpm3-4b`` (first 2 layers, full width, f32)
+   within 2e-4 of max |logit| of the default forward; (b) the dry-run
+   (``repro_torch.launch.dryrun``, host work in subprocesses started
+   before (a)): the dense floor's cells and a decode cell of every other
+   family on the 16×16 and 2×16×16 fake meshes and the one-card view, a
+   line a cell (argument and temp bytes, whether they fit this card,
+   FLOPs, collective bytes, the roofline's terms on the H100's data-sheet
+   peaks); every dense cell must be ``ok``; (c) the bytes that
+   ``launch/specs.py`` predicts on meta for tinyllama's parameters, its
+   phase-4 cache and train state against the card's tensors, and the
+   FLOPs of the products no kernel replaces over a prefill and a train
+   step, counted on meta and on the card: equal, exactly;
+10. prints one JSON line of the kernels and, last, the device line.
 
 It exits non-zero, printing no result, without a card or outside a
 checkout, and on any failed check.
@@ -147,10 +167,17 @@ from typing import NamedTuple, Optional
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
-# them, HBM3 bandwidth.  The bound is taken against these at any power limit.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES = 3.35e12
+
+def peaks() -> tuple:
+    """(ops/s by dtype, bytes/s): the H100 SXM's data-sheet peaks (dense:
+    bf16 tensor cores, f32 outside them, HBM3 bandwidth), from their one
+    copy, ``repro_torch.roofline.HW``, which the dry-run's roofline reads
+    too.  The bound is taken against these at any power limit."""
+    from repro_torch.roofline import HW
+
+    hw = HW()
+    return {"bfloat16": hw.peak_flops, "float32": hw.peak_flops_f32}, hw.hbm_bw
+
 
 # (B, S, H, KV, D, causal, window, chunk, dtype): the reference's FLASH_CASES
 # (tests/test_kernels.py), then the serving path's own shape and a ragged S
@@ -456,7 +483,8 @@ def attention_bound_ms(case) -> tuple:
     nbytes = item * b * s * d * (2 * h + 2 * kv)
     pairs = visible_pairs(s, causal, window, chunk)
     flops = 4 * b * h * d * pairs
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    peak_flops, peak_bytes = peaks()
+    t_bytes, t_ops = nbytes / peak_bytes, flops / peak_flops[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -541,7 +569,8 @@ def gmm_bound_ms(case) -> tuple:
     item = 2 if dtype == "bfloat16" else 4
     nbytes = item * e * (c * d + d * f + c * f)
     flops = 2 * e * c * d * f
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    peak_flops, peak_bytes = peaks()
+    t_bytes, t_ops = nbytes / peak_bytes, flops / peak_flops[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -675,7 +704,8 @@ def ssd_bound_ms(case) -> tuple:
     nbytes = 4 * bsz * h * nc * q + item * bsz * nc * q * (2 * h * p + 2 * g * n) + 4 * bsz * h * nc * p * n
     pairs = q * (q + 1) // 2
     flops = bsz * h * nc * (pairs * (2 * n + 1 + 2 * p) + q * n + 2 * q * p * n)
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    peak_flops, peak_bytes = peaks()
+    t_bytes, t_ops = nbytes / peak_bytes, flops / peak_flops[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1540,7 +1570,8 @@ def grad_pack_full(grads) -> dict:
     torch.cuda.empty_cache()
     t_whole = cuda_ms(lambda: gp.pack_grads_fused(g, ef_k), iters=3, warmup=1)
     n = plan.n_tiles * gp.TILE
-    t_bytes, t_ops = GRAD_PACK_BYTES * n / PEAK_BYTES, GRAD_PACK_OPS * n / PEAK_FLOPS["float32"]
+    peak_flops, peak_bytes = peaks()
+    t_bytes, t_ops = GRAD_PACK_BYTES * n / peak_bytes, GRAD_PACK_OPS * n / peak_flops["float32"]
     bound, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
     print(f"grad_pack {TRAIN_ARCH} gradient tree ({n_leaves} leaves, {sum(s.nelems for s in plan.specs)} elements, "
           f"{n} padded, largest leaf {max(s.nelems for s in plan.specs)}): kernel={t_kernel} ms (again {t_kernel2} ms) "
@@ -2296,6 +2327,303 @@ def des_path(kernels, payloads) -> dict:
     return launches
 
 
+# Phase 9: the port's sharding on the card.  (a) tinyllama's train step
+# with its state and batch placed as DTensors on a 1×1 ("data", "model")
+# mesh over a one-rank NCCL group: the same local ops as the unsharded step
+# (DTensor adds no op on one device: a CPU rehearsal of the smoke config on
+# a one-rank gloo mesh matched bit for bit), so the gate is bit for bit,
+# loss and every state leaf; then the seq_act forward of qwen2 and minicpm3
+# (first SEQ_ACT_LAYERS layers, full width, f32) against the default one.
+# (b) the dry-run (host work, in subprocesses beside (a)): the dense
+# floor's cells and one decode cell of every other family on both
+# production meshes, and the one-card view; (c) the meta prediction against
+# the card: bytes exactly, the matrix products no kernel replaces exactly.
+SHARD_STEPS = 2
+SEQ_ACT_ARCHS = ("qwen2-7b", "minicpm3-4b")
+SEQ_ACT_LAYERS = 2
+SEQ_ACT_B, SEQ_ACT_S = 1, 1024
+# the reference test's 2e-4 (tests/test_integration.py), made relative to
+# max |logit| for full width
+SEQ_ACT_REL_TOL = 2e-4
+DRYRUN_DENSE = ("tinyllama-1.1b", "qwen2-7b", "h2o-danube-3-4b")
+DRYRUN_OTHERS = ("mamba2-130m", "zamba2-1.2b", "deepseek-moe-16b", "minicpm3-4b", "whisper-large-v3",
+                 "internvl2-76b", "llama4-scout-17b-a16e")
+DRYRUN_TIMEOUT_S = 540
+SERVE_SLOTS, SERVE_CONTEXT, SERVE_PROMPT = 8, 2048, 1024  # phase 4's server: 8 slots of 2048, prompts up to 1024
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def _one_rank_nccl(tmp):
+    """A default NCCL group of world 1 over a ``file://`` store in ``tmp``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+
+
+def sharded_train(kernels) -> tuple:
+    """Phase 9(a): TRAIN_ARCH at full width, bf16, B=TRAIN_B, S=TRAIN_S,
+    SHARD_STEPS steps from phase 5's initial parameters (seed 0) under the
+    default ``TrainConfig()`` (remat "dots"), once unsharded and once with
+    the state placed by ``param_specs``/``opt_specs(zero=True)`` and the
+    batch by ``batch_specs`` on the 1×1 mesh, under ``make_rules``.  Gates:
+    the losses and every state leaf's local tensor bit for bit; the flash
+    kernel launching as often in the sharded steps as in the unsharded
+    ones, and at least once a layer a step.  Then the seq_act forwards.
+    Every count is set to 0 just before the sharded steps and read just
+    after them; the unsharded steps, run to compare, are counted apart.
+    Returns (the sharded steps' launches, the unsharded step's readings for
+    9(c))."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_rules, make_test_mesh
+    from repro_torch.optim import OptHParams
+    from repro_torch.roofline import count_ops
+    from repro_torch.sharding import PartitionSpec, use_rules
+    from repro_torch.sharding.params import batch_specs, distribute_tree, opt_specs, param_specs
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.checkpoint.manager import _flatten
+
+    arch = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig()
+    step_fn = make_train_step(arch, OptHParams(lr_peak=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL), tcfg)
+    batch = train_batch(arch, 0)
+    flash = kernels["flash_attention"]
+    with tempfile.TemporaryDirectory() as tmp:
+        _one_rank_nccl(tmp)
+        try:
+            plain = init_train_state(torch.Generator(device="cuda").manual_seed(0), arch, tcfg)
+            state_bytes = _tree_bytes(plain)
+            plain_losses, plain_flash, readings = [], 0, {"state_bytes": state_bytes}
+            for i in range(SHARD_STEPS):
+                f0 = flash.launches
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                if i == 0:  # 9(c): the step's matrix products and peak, counted on the card
+                    with count_ops() as counted:
+                        plain, met = step_fn(plain, batch)
+                    readings["train_mm_flops"] = _mm_flops(counted)
+                else:
+                    plain, met = step_fn(plain, batch)
+                plain_losses.append(met["loss"].clone())
+                torch.cuda.synchronize()
+                readings.setdefault("train_peak", torch.cuda.max_memory_allocated())
+                plain_flash += flash.launches - f0
+            mesh = make_test_mesh((1, 1), ("data", "model"))
+            rules = make_rules(mesh)
+            with use_rules(rules):
+                state = init_train_state(torch.Generator(device="cuda").manual_seed(0), arch, tcfg)
+                spec = {"params": param_specs(state["params"], rules),
+                        "opt": opt_specs(state["opt"], state["params"], rules, zero=True, mesh=mesh),
+                        "step": PartitionSpec()}
+                state = distribute_tree(state, mesh, spec)
+                placed = distribute_tree(batch, mesh, batch_specs(batch, rules))
+                for fn in kernels.values():
+                    fn.launches = 0
+                losses, walls = [], []
+                for i in range(SHARD_STEPS):
+                    t0 = time.monotonic()
+                    state, met = step_fn(state, placed)
+                    losses.append(met["loss"].clone())
+                    torch.cuda.synchronize()
+                    walls.append(time.monotonic() - t0)
+                launches = {name: fn.launches for name, fn in kernels.items()}
+                differ = [k for (k, a), (_, b) in zip(_flatten(state), _flatten(plain)) if not torch.equal(a.to_local(), b)]
+                kinds = {type(t).__name__ for _, t in _flatten(state)}
+            same_loss = all(torch.equal(a, b) for a, b in zip(losses, plain_losses))
+            print(f"phase 9(a) {TRAIN_ARCH} sharded train on a 1x1 mesh (NCCL, world 1), B={TRAIN_B} S={TRAIN_S} "
+                  f"remat={tcfg.remat}, {SHARD_STEPS} steps: losses {[float(x) for x in losses]} vs unsharded "
+                  f"{[float(x) for x in plain_losses]}, bit for bit: {same_loss}; state leaves {kinds}, "
+                  f"{len(differ)} of {len(_flatten(state))} differing from the unsharded step's {differ[:5]}; "
+                  f"flash launches sharded {launches['flash_attention']} unsharded {plain_flash}; walls {walls} s")
+            if not same_loss or differ or kinds != {"DTensor"}:
+                fail(f"phase 9(a): the sharded step is not the unsharded step bit for bit (loss {same_loss}, leaves {differ[:5]}, {kinds})")
+            if launches["flash_attention"] != plain_flash or plain_flash < arch.n_layers * SHARD_STEPS:
+                fail(f"phase 9(a): flash launched {launches['flash_attention']} times sharded, {plain_flash} unsharded, "
+                     f"want equal and at least {arch.n_layers * SHARD_STEPS}")
+            if any(n for name, n in launches.items() if name != "flash_attention"):
+                fail(f"phase 9(a): kernels other than flash launched on the dense train: {launches}")
+            del state, plain, placed
+            torch.cuda.empty_cache()
+            seq_act_forward(mesh)
+        finally:
+            dist.destroy_process_group()
+    return launches, readings
+
+
+def seq_act_forward(mesh) -> None:
+    """Phase 9(a): the first SEQ_ACT_LAYERS layers of each SEQ_ACT_ARCHS
+    model at full width in f32, B=SEQ_ACT_B, S=SEQ_ACT_S: the forward under
+    rules with ``seq_act="model"`` (heads and kv heads replicated: the
+    reference's sequence-parallel einsums) against the default forward
+    (flash on the card for qwen2; MLA's einsums for minicpm3), within
+    SEQ_ACT_REL_TOL of max |logit|."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_rules
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.sharding import use_rules
+    from repro_torch.sharding.params import batch_specs, distribute_tree, param_specs
+
+    for name in SEQ_ACT_ARCHS:
+        arch = get_config(name).variant(n_layers=SEQ_ACT_LAYERS, dtype="float32")
+        params = init_params(torch.Generator(device="cuda").manual_seed(0), arch)
+        toks = torch.randint(0, arch.vocab_size, (SEQ_ACT_B, SEQ_ACT_S), generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": toks.cuda()}
+        with torch.no_grad():
+            ref, _ = forward_train(params, arch, batch)
+            rules = make_rules(mesh, overrides={"seq_act": "model", "heads": None, "kv_heads": None})
+            with use_rules(rules):
+                sp, _ = forward_train(distribute_tree(params, mesh, param_specs(params, rules)), arch,
+                                      distribute_tree(batch, mesh, batch_specs(batch, rules)))
+            sp = sp.full_tensor()
+        rel = float((sp - ref).abs().max() / ref.abs().max())
+        print(f"phase 9(a) seq_act forward {name} ({SEQ_ACT_LAYERS} layers, full width, f32, B={SEQ_ACT_B} "
+              f"S={SEQ_ACT_S}): max |seq_act - default| = {rel} of max |logit| {float(ref.abs().max())} "
+              f"(tol {SEQ_ACT_REL_TOL}); finite {bool(torch.isfinite(sp).all())}")
+        if not (rel <= SEQ_ACT_REL_TOL and torch.isfinite(sp).all()):
+            fail(f"phase 9(a): the seq_act forward of {name} disagrees with the default forward: {rel}")
+        del params, ref, sp
+        torch.cuda.empty_cache()
+
+
+def _mm_flops(counted) -> float:
+    """The FLOPs of the matrix products with no batch (projections, MLP, LM
+    head: ``mm``, ``addmm``, an einsum's ``bmm`` of one); attention's
+    einsums are batched over B × kv heads."""
+    return counted.flat_dot_flops
+
+
+def dryrun_start(tmp) -> list:
+    """Phase 9(b): the dry-run subprocesses (host work), started before
+    9(a) so they run beside it: the production 16×16 mesh, the 2×16×16
+    one, and the one-card view (a 1×1 mesh: per-device bytes are the
+    global bytes)."""
+    import os
+
+    cells = [f"{a}:{s}" for a in DRYRUN_DENSE for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
+    cells += [f"{a}:decode_32k" for a in DRYRUN_OTHERS]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")  # host work: off the card
+    runs = []
+    for name, extra in (("16x16", []), ("2x16x16", ["--multi-pod"]), ("1x1", ["--mesh", "1x1"])):
+        out = Path(tmp) / name
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells", ",".join(cells), "--out", str(out), *extra]
+        runs.append((name, out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                                 env=env, cwd=str(ROOT))))
+    return runs
+
+
+def dryrun_finish(runs, total_memory: int, smi: str) -> dict:
+    """Phase 9(b): waits for the dry-runs, prints a line a cell and gates:
+    every applicable cell of the dense floor ``ok`` on both production
+    meshes, every other cell ``ok`` or an ``error`` that names its op."""
+    from repro_torch.roofline import HW, analyze_cell
+
+    hw = HW()
+    print(f"phase 9(b) the dry-run (meta tensors on a fake mesh, host work; roofline terms on HW(): "
+          f"{hw.peak_flops} FLOP/s, {hw.hbm_bw} B/s, link {hw.ici_link_bw} B/s, data-sheet figures); "
+          f"fits against this card's {total_memory} bytes; card: {smi}")
+    recs = {}
+    for name, out, proc in runs:
+        try:
+            log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"phase 9(b): the {name} dry-run ran past {DRYRUN_TIMEOUT_S} s")
+        walls = [ln for ln in log.splitlines() if ln.startswith("[")]
+        print(f"phase 9(b) {name} dry-run exit {proc.returncode}:\n  " + "\n  ".join(walls))
+        for p in sorted(out.glob("*.json")):
+            recs[(name, p.stem)] = json.loads(p.read_text())
+    for (name, tag), rec in sorted(recs.items()):
+        if rec["status"] == "ok":
+            mem = rec["memory"]
+            need = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+            c = analyze_cell(rec, hw)
+            print(f"  {name} {tag}: ok args={mem['argument_size_in_bytes']} temp={mem['temp_size_in_bytes']} "
+                  f"fits={need <= total_memory} dot_flops={rec['dot_flops']} coll={rec['collective_bytes']} "
+                  f"compute={c.compute_s} s memory={c.memory_s} s collective={c.collective_s} s dominant={c.dominant}")
+        else:
+            print(f"  {name} {tag}: {rec['status']} {rec.get('op')} {rec.get('error', rec.get('reason', ''))[:200]}")
+    from repro_torch.configs import SHAPES, cell_is_applicable, get_config
+
+    for mesh in ("16x16", "2x16x16"):
+        for a in DRYRUN_DENSE:
+            for s in SHAPES:
+                rec = recs.get((mesh, f"{a}__{s}__{'pod2' if mesh == '2x16x16' else 'pod1'}"))
+                applicable = cell_is_applicable(get_config(a), SHAPES[s])[0]
+                if applicable and (rec is None or rec["status"] != "ok"):
+                    fail(f"phase 9(b): dense cell {a} x {s} on {mesh}: {rec and rec.get('error')}")
+    bad = [k for k, r in recs.items() if r["status"] == "error" and not r.get("op")]
+    if bad:
+        fail(f"phase 9(b): cells failed without naming an op: {bad}")
+    return recs
+
+
+def meta_prediction(readings) -> None:
+    """Phase 9(c): TRAIN_ARCH's bytes as ``launch/specs.py`` predicts them
+    on meta against the tensors on the card (params; the cache of phase
+    4's server, SERVE_SLOTS × SERVE_CONTEXT; the train state), exactly; the
+    FLOPs of the matrix products no kernel replaces (no batch: ``_mm_flops``) over a prefill
+    of SERVE_SLOTS × SERVE_PROMPT and over the train step, counted on meta
+    and on the card, exactly; the meta temp peak beside the card's peak of
+    the same train step (printed, not gated)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import META, abstract_cache, abstract_params, abstract_train_state
+    from repro_torch.models import init_cache, init_params, prefill
+    from repro_torch.optim import OptHParams
+    from repro_torch.roofline import count_ops
+    from repro_torch.train import TrainConfig, make_train_step
+
+    arch = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), arch)
+    cache = init_cache(arch, SERVE_SLOTS, SERVE_CONTEXT, device="cuda")
+    toks = torch.randint(0, arch.vocab_size, (SERVE_SLOTS, SERVE_PROMPT), generator=torch.Generator().manual_seed(2))
+    with torch.no_grad(), count_ops() as card:
+        prefill(params, arch, {"tokens": toks.cuda()}, cache)
+    torch.cuda.synchronize()
+    m_params, m_cache = abstract_params(arch), abstract_cache(arch, SERVE_SLOTS, SERVE_CONTEXT)
+    with torch.no_grad(), count_ops() as meta:
+        prefill(m_params, arch, {"tokens": torch.empty_like(toks, device=META)}, m_cache)
+    m_state = abstract_train_state(arch, tcfg)
+    step_fn = make_train_step(arch, OptHParams(lr_peak=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL), tcfg)
+    m_batch = {k: torch.empty((TRAIN_B, TRAIN_S), dtype=torch.long, device=META) for k in ("tokens", "labels")}
+    with count_ops() as meta_train:
+        step_fn(m_state, m_batch)
+    rows = {
+        "params bytes": (_tree_bytes(m_params), _tree_bytes(params)),
+        "cache bytes": (_tree_bytes(m_cache), _tree_bytes(cache)),
+        "train state bytes": (_tree_bytes(abstract_train_state(arch, tcfg)), readings["state_bytes"]),
+        "prefill mm FLOPs": (_mm_flops(meta), _mm_flops(card)),
+        "train step mm FLOPs": (_mm_flops(meta_train), readings["train_mm_flops"]),
+    }
+    for what, (pred, got) in rows.items():
+        print(f"phase 9(c) {TRAIN_ARCH} {what}: meta {pred}, card {got}, equal {pred == got}")
+    print(f"phase 9(c) {TRAIN_ARCH} train step B={TRAIN_B} S={TRAIN_S} remat={tcfg.remat}: meta temp peak "
+          f"{meta_train.peak_bytes} bytes; the card's max_memory_allocated {readings['train_peak']} bytes "
+          f"({readings['train_peak'] - readings['state_bytes']} above the state); ratio temp / (peak - state) "
+          f"{meta_train.peak_bytes / max(1, readings['train_peak'] - readings['state_bytes'])}")
+    bad = {k: v for k, v in rows.items() if v[0] != v[1] or not v[0]}
+    if bad:
+        fail(f"phase 9(c): the meta prediction differs from the card: {bad}")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2452,7 +2780,21 @@ def main() -> int:
     # 8. the DES: its traces against the stack's on the card's bytes, verdicts -
     by_path["DES"] = des_path(kernels, [PP_PAYLOADS["q8"], PP_PAYLOADS["rsnp"]])
 
-    # 9. the record ---------------------------------------------------------------
+    # 9. sharding: the sharded train step and seq_act on the card, the
+    # dry-run (host subprocesses, beside 9(a)), the meta prediction --------
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as dry_tmp:
+        t0 = time.monotonic()
+        runs = dryrun_start(dry_tmp)
+        by_path[f"{TRAIN_ARCH} sharded train"], readings = sharded_train(kernels)
+        t_a = time.monotonic() - t0
+        dryrun_finish(runs, torch.cuda.get_device_properties(0).total_memory, smi)
+        t_b = time.monotonic() - t0
+    meta_prediction(readings)
+    print(f"phase 9: {time.monotonic() - t0} s (9(a) {t_a} s; the dry-runs done {t_b} s after the start)")
+
+    # 10. the record --------------------------------------------------------------
     g_kernel, g_plain, g_lib, gbound, gbound_by, g_device, g_lib_device = gmm_ms[GMM_PREFILL_UP][:7]
     t_kernel, t_plain, t_lib, sbound, sbound_by, t_device = ssd_ms[SSD_MAMBA2][:6]
     fl = flash_ms[SLICE_CASE]

@@ -28,9 +28,14 @@ restores there:
   two (the reference rebuilds from a ``jax.eval_shape`` abstract state,
   which has no torch counterpart that allocates nothing).
 
-The reference's ``shardings`` argument (elastic re-placement onto another
-mesh) has no counterpart until sharding is ported (ROADMAP.md, queue A,
-item 7): leaves are restored onto ``like``'s devices.
+* **Sharded**: a DTensor leaf is saved as its ``full_tensor()`` (every
+  rank takes part in the gather; rank 0 alone writes), in the same
+  format.  ``restore(like, shardings=tree)`` is the reference's elastic
+  re-placement: each leaf comes back as a DTensor on its sharding's
+  ``(mesh, placements)`` (a :class:`~repro_torch.sharding.NamedSharding`
+  tree, as ``sharding.params.tree_shardings`` makes), whatever mesh wrote
+  it; ``like`` then only names the leaves, shapes and dtypes (meta tensors
+  will do).
 """
 from __future__ import annotations
 
@@ -114,6 +119,25 @@ def _from_host(arr: np.ndarray, dtype: str, where: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _full(leaf: Any) -> Any:
+    """A DTensor leaf's whole value (a collective: every rank calls it)."""
+    from ..sharding.logical import is_dtensor
+
+    return leaf.full_tensor() if is_dtensor(leaf) else leaf
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _writer() -> bool:
+    """Rank 0 writes; the other ranks of a group only take part in the
+    gathers."""
+    return _rank() == 0
+
+
 class CheckpointManager:
     def __init__(self, directory: str, executor: Optional[AMTExecutor] = None, keep: int = 3):
         self.dir = Path(directory)
@@ -126,6 +150,9 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
     def save(self, state: Any, step: int, wait: bool = False) -> None:
         self.wait()  # only one save in flight
+        gathered = [(key, _to_host(_full(leaf))) for key, leaf in _flatten(state)]
+        if not _writer():
+            return
         tmp = self.dir / f"step_{step}.tmp"
         final = self.dir / f"step_{step}"
         if tmp.exists():
@@ -133,8 +160,7 @@ class CheckpointManager:
         tmp.mkdir(parents=True)
         manifest: Dict[str, Any] = {"step": step, "leaves": {}}
         host_leaves = []
-        for key, leaf in _flatten(state):
-            arr, dt = _to_host(leaf)
+        for key, (arr, dt) in gathered:
             fname = key.replace("/", "__") + ".npy"
             manifest["leaves"][key] = {"file": fname, "dtype": dt, "shape": list(arr.shape)}
             host_leaves.append((tmp / fname, arr))
@@ -189,11 +215,13 @@ class CheckpointManager:
         steps = self.available_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Any, step: Optional[int] = None) -> Tuple[Any, int]:
+    def restore(self, like: Any, step: Optional[int] = None, shardings: Optional[Any] = None) -> Tuple[Any, int]:
         """Copy checkpoint ``step`` (default: the latest) into ``like``'s
         tensors in place and return ``(like, step)``.  Every leaf's shape
         and dtype is checked against the manifest before anything is
-        copied."""
+        copied.  With ``shardings`` (a tree of ``(mesh, placements)``
+        leaves matching ``like``) each leaf is instead rebuilt as a DTensor
+        on its placement and a new tree is returned."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -212,6 +240,8 @@ class CheckpointManager:
             if _dtype_name(ref.dtype) != ent["dtype"]:
                 raise ValueError(f"leaf {key}: ckpt dtype {ent['dtype']} != target {_dtype_name(ref.dtype)}")
             plan.append((key, ref, ent))
+        if shardings is not None:
+            return self._restore_placed(like, d, plan, shardings), int(manifest["step"])
         with torch.no_grad():
             for key, ref, ent in plan:
                 arr = np.load(d / ent["file"])
@@ -219,3 +249,20 @@ class CheckpointManager:
                     raise ValueError(f"leaf {key}: file shape {arr.shape} != manifest {tuple(ent['shape'])}")
                 ref.copy_(_from_host(arr, ent["dtype"], f"leaf {key}"))
         return like, int(manifest["step"])
+
+    def _restore_placed(self, like: Any, d: Path, plan: List[Any], shardings: Any) -> Any:
+        """Each planned leaf as a DTensor on its sharding; every rank reads
+        the file and keeps its own shard (no collective)."""
+        from torch.distributed.tensor import distribute_tensor
+
+        from ..tree import unflatten
+
+        sh = dict(_flatten(shardings))
+        out = []
+        for key, ref, ent in plan:
+            if key not in sh:
+                raise KeyError(f"shardings has no leaf {key!r}")
+            mesh, placements = sh[key]
+            t = _from_host(np.load(d / ent["file"]), ent["dtype"], f"leaf {key}").to(mesh.device_type)
+            out.append(distribute_tensor(t, mesh, placements, src_data_rank=None))
+        return unflatten(like, out)

@@ -115,9 +115,9 @@ def flash_attention(
     chunk: int = 0,
 ) -> torch.Tensor:
     """Forward attention of q against k/v; CUDA tensors run the kernel,
-    CPU tensors :func:`attention_plain`.  ``flash_attention.launches``
+    CPU and meta tensors :func:`attention_plain`.  ``flash_attention.launches``
     counts kernel launches."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):  # meta: the dry-run's shapes, no data
         return attention_plain(q, k, v, causal=causal, window=window, chunk=chunk)
     _check(q, k, v, window, chunk)
     refuse_autograd("flash_attention", q, k, v)

@@ -58,10 +58,10 @@ def _lib():
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, C, D) × w (E, D, F) → (E, C, F) in x's dtype.  CUDA tensors
     run the kernel (read through their strides; an operand whose last dim
-    is not contiguous is first copied contiguous), CPU tensors
+    is not contiguous is first copied contiguous), CPU and meta tensors
     :func:`grouped_matmul_plain`.  ``grouped_matmul.launches`` counts
     kernel launches, ``grouped_matmul.copies`` the copies."""
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):  # meta: the dry-run's shapes, no data
         return grouped_matmul_plain(x, w)
     _check(x, w)
     refuse_autograd("grouped_matmul", x, w)

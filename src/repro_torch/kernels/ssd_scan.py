@@ -194,11 +194,11 @@ def ssd_chunk_kernel(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y_diag (B,H,nc,Q,P) in x's dtype, chunk_states
     (B,H,nc,P,N) in f32).  CUDA tensors run the kernel (read through their
-    strides), CPU tensors :func:`ssd_chunk_plain`.
+    strides), CPU and meta tensors :func:`ssd_chunk_plain`.
     ``ssd_chunk_kernel.launches`` counts kernel launches;
     ``ssd_chunk_kernel.heads_per_block`` is the last launch's heads a
     block."""
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):  # meta: the dry-run's shapes, no data
         return ssd_chunk_plain(a_dt, x, b, c)
     _check_shapes(a_dt, x, b, c)
     smem = _check_kernel(a_dt, x, b, c)

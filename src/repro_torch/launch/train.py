@@ -8,7 +8,11 @@ given; without a card it raises.  Weights are random, from a
 every ``--ckpt-every`` steps and at the end, and a run started on a
 directory that holds a checkpoint resumes from its latest step (the
 reference's format: a JAX run's checkpoint resumes here, and back).
-``--production`` / ``--multi-pod`` (sharding) are not ported yet and raise.
+``--production`` binds the 16×16 production mesh and its sharding rules
+around the trainer (``--multi-pod`` the 2×16×16 one), as the reference
+does: the process group of that world (256 or 512 ranks, one card each,
+``torchrun`` or the like) must exist before ``main`` runs, else the mesh
+raises and names the world it needs.
 """
 from __future__ import annotations
 
@@ -17,8 +21,10 @@ from typing import List, Optional
 
 from ..configs import get_config, get_smoke_config
 from ..optim import OptHParams
+from ..sharding.logical import use_rules
 from ..train import TrainConfig
 from ..train.trainer import Trainer, TrainerConfig
+from .mesh import make_production_mesh, make_rules
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -38,13 +44,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "fused device kernel (bit-identical wire bytes)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--production", action="store_true", help="bind the production mesh (not ported yet)")
+    ap.add_argument("--production", action="store_true", help="bind the 16x16 production mesh")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
 
-    if args.production or args.multi_pod:
-        raise NotImplementedError("--production / --multi-pod need sharding, which is not ported yet (ROADMAP.md, queue A, item 7)")
     arch = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     hp = OptHParams(lr_peak=args.lr, warmup_steps=max(args.steps // 10, 1), total_steps=args.steps)
     tcfg = TrainConfig(microbatches=args.microbatches, remat=args.remat,
@@ -56,10 +60,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every,
     )
-    trainer = Trainer(arch, hp, tcfg, run, device=args.device)
-    summary = trainer.train()
-    print("summary:", summary)
-    return 0
+    def go() -> int:
+        trainer = Trainer(arch, hp, tcfg, run, device=args.device)
+        summary = trainer.train()
+        print("summary:", summary)
+        return 0
+
+    if args.production or args.multi_pod:
+        mesh = make_production_mesh(multi_pod=args.multi_pod)
+        with use_rules(make_rules(mesh)):
+            return go()
+    return go()
 
 
 if __name__ == "__main__":

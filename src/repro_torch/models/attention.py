@@ -46,6 +46,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
+from ..sharding.logical import contiguous_grads, current_rules, is_dtensor, shard
 from .layers import Params, apply_rope, dense_init
 
 __all__ = [
@@ -97,6 +98,9 @@ def _project_qkv(
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
+    q = shard(q, "batch", "seq", "heads", "head_dim")
+    k = shard(k, "batch", "seq", "kv_heads", "head_dim")
+    v = shard(v, "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
 
 
@@ -140,16 +144,125 @@ def _attention_core(
     kind: str,
     window: int,
     q_chunk: int = 1024,
+    grad: bool = False,
 ) -> torch.Tensor:
     """Scaled-dot-product GQA over full K/V (qpos and kpos both
-    ``arange``).  Self-attention on CUDA tensors goes to the
-    flash-attention kernel; CPU tensors and cross-attention to
+    ``arange``).  Under rules that map ``seq_act`` to a mesh axis, the
+    reference's sequence-parallel einsums (:func:`_attention_seq_act`,
+    never the kernel).  Self-attention of DTensors, and any attention of
+    DTensors under ``seq_act``, runs on each rank's shards
+    (:func:`_attention_local`); self-attention of plain CUDA tensors the
+    flash-attention kernel (through :class:`FlashAttentionFn` when
+    ``grad``, the train path); everything else
     :func:`_attention_core_plain`."""
     if kind not in KINDS:
         raise ValueError(f"unknown attention kind {kind!r}")
+    seq_act = _seq_act()
+    if is_dtensor(q) and (seq_act or q.shape[1] == k.shape[1]):
+        return _attention_local(q, k, v, kind, window, grad, seq_act)
+    if seq_act:
+        return _attention_seq_act(q, k, v, qpos, kpos, kind, window)
     if _kernel_route(q, k):
+        if grad:
+            return FlashAttentionFn.apply(q, k, v, kind, window)
         return kops.attention(q, k, v, **_kernel_kw(kind, window))
     return _attention_core_plain(q, k, v, qpos, kpos, kind, window, q_chunk)
+
+
+def _attention_seq_act(q, k, v, qpos, kpos, kind: str, window: int) -> torch.Tensor:
+    """Sequence-parallel attention: the score computation is partitioned
+    over the *query sequence* instead of heads — the win for archs whose
+    head counts don't divide the model axis (28/40/20 heads on a 16-way
+    axis would otherwise replicate all attention compute).  The
+    reference's plain einsums of the queries at ``qpos`` over the whole
+    key range; on DTensors each rank runs them on its block of queries
+    (:func:`_attention_local`)."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    q = shard(q, "batch", "seq_act", "heads", "head_dim")
+    qg = q.reshape(b, sq, kvh, g, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * (1.0 / math.sqrt(hd))
+    scores = shard(scores, "batch", "kv_heads", None, "seq_act", "seq_kv")
+    scores = scores.masked_fill(~_mask_block(qpos, kpos, kind, window), NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    probs = shard(probs, "batch", "kv_heads", None, "seq_act", "seq_kv")
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v).reshape(b, sq, h, hd)
+    return shard(out, "batch", "seq_act", "heads", "head_dim")
+
+
+def _seq_act() -> bool:
+    """Whether the active rules map ``seq_act`` to a mesh axis."""
+    rules = current_rules()
+    return bool(rules is not None and rules.table.get("seq_act"))
+
+
+def _kv_pick(a: int, hl: int, b0: int, kl: int, g: int):
+    """The local kv heads that local query heads a..a+hl-1 (global
+    numbering, G query heads a kv head) read, from a kv shard of kl heads
+    starting at global kv head b0: None when the shard lines up as it is,
+    a slice when they are a contiguous run each read by the same number of
+    query heads, else one kv head index per query head."""
+    need = [(a + i) // g - b0 for i in range(hl)]
+    lo, n = need[0], need[-1] - need[0] + 1
+    if hl % n == 0 and need == [lo + i // (hl // n) for i in range(hl)]:
+        return None if (lo, n) == (0, kl) else slice(lo, lo + n)
+    return need
+
+
+def _attention_local(q, k, v, kind: str, window: int, grad: bool, seq_act: bool = False) -> torch.Tensor:
+    """Attention of DTensors q (B,Sq,H,D) and k/v (B,Skv,KV,D) on each
+    rank's local shards (``local_map``): the kernel on CUDA shards
+    (:class:`FlashAttentionFn` when ``grad``), :func:`_attention_core_plain`
+    on CPU and meta ones, so the placement logic is the same on every
+    device; under ``seq_act`` the queries are sharded over the sequence as
+    the rules say and each rank runs :func:`_attention_seq_act` on its
+    block of queries against all keys.  Batch, heads (and the query
+    sequence under ``seq_act``) stay sharded as q's are; k and v follow
+    q's batch sharding, and any other sharding (the sequence, a partial
+    sum) is gathered first.  Each rank hands its attention the kv heads
+    its query heads use: with kv heads replicated and query heads sharded
+    (4 kv heads on a 16-way axis), local head h' of a shard starting at
+    global head a reads kv head (a + h') // G, not h' // G'."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    if seq_act:
+        q = shard(q, "batch", "seq_act", "heads", "head_dim")
+    keep = lambda pl, dims: pl if isinstance(pl, Shard) and pl.dim in dims else Replicate()  # noqa: E731
+    q_pl = tuple(keep(pl, (0, 1, 2) if seq_act else (0, 2)) for pl in q.placements)
+    kv_pl = tuple(Shard(0) if qp == Shard(0) else (keep(kp, (2,)) if qp == Shard(2) else Replicate())
+                  for qp, kp in zip(q_pl, k.placements))
+    q = q if tuple(q.placements) == q_pl else q.redistribute(mesh, q_pl)
+    k = k if tuple(k.placements) == kv_pl else k.redistribute(mesh, kv_pl)
+    v = v if tuple(v.placements) == kv_pl else v.redistribute(mesh, kv_pl)
+    (_, _, hl, _), (_, s0, a, _) = compute_local_shape_and_global_offset(q.shape, mesh, q_pl)
+    (_, _, kl, _), (_, _, b0, _) = compute_local_shape_and_global_offset(k.shape, mesh, kv_pl)
+    pick = _kv_pick(a, hl, b0, kl, q.shape[2] // k.shape[2])
+
+    def body(ql: torch.Tensor, kl_: torch.Tensor, vl: torch.Tensor) -> torch.Tensor:
+        contiguous_grads(ql, kl_, vl)
+        if pick is not None:
+            idx = pick if isinstance(pick, slice) else torch.tensor(pick, device=kl_.device)
+            kl_, vl = kl_[:, :, idx].contiguous(), vl[:, :, idx].contiguous()
+        kpos = torch.arange(kl_.shape[1], dtype=torch.int32, device=kl_.device)
+        if seq_act:
+            qpos = torch.arange(s0, s0 + ql.shape[1], dtype=torch.int32, device=ql.device)
+            return _attention_seq_act(ql, kl_, vl, qpos, kpos, kind, window)
+        if _kernel_route(ql, kl_):
+            if grad:
+                return FlashAttentionFn.apply(ql, kl_, vl, kind, window)
+            return kops.attention(ql, kl_, vl, **_kernel_kw(kind, window))
+        return _attention_core_plain(ql, kl_, vl, kpos, kpos, kind, window)
+
+    # a kv shard replicated across query shards (heads, or the sequence
+    # under seq_act) gets one partial gradient from each of them
+    kv_grad = tuple(Partial() if qp in (Shard(1), Shard(2)) and kp == Replicate() else kp
+                    for qp, kp in zip(q_pl, kv_pl))
+    return local_map(body, out_placements=list(q_pl), in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad), device_mesh=mesh)(q, k, v)
 
 
 def _attention_core_plain(
@@ -163,9 +276,12 @@ def _attention_core_plain(
     q_chunk: int = 1024,
 ) -> torch.Tensor:
     """The reference's lowering (``_attention_core``'s scan), on any
-    device: q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd); scanned over query chunks,
-    with K/V sliced per chunk for swa/chunked so those flavours cost
-    O(S·window); scores in f32, probabilities cast to v's dtype."""
+    device: q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd); qpos = arange(Sq), kpos =
+    arange(Skv); scanned over query chunks, with K/V sliced per chunk for
+    swa/chunked so those flavours cost O(S·window); scores in f32,
+    probabilities cast to v's dtype.  The slices are computed from the
+    chunk index, never read from a position tensor, so a meta tensor (the
+    dry-run) takes this path too."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -192,9 +308,9 @@ def _attention_core_plain(
         else:
             # slice the kv range this chunk can see
             if kind == "swa":
-                start = int(qp[-1]) + 1 - kv_len
+                start = (c + 1) * cq - kv_len  # the chunk's last query + 1 - kv_len
             else:  # chunked: the chunk containing the queries
-                start = (int(qp[0]) // window) * window
+                start = (c * cq // window) * window
             start = min(max(start, 0), skv - kv_len)
             kc, vc = k[:, start : start + kv_len], v[:, start : start + kv_len]
             kp = kpos[start : start + kv_len]
@@ -246,18 +362,14 @@ def attention_train(
 ) -> torch.Tensor:
     """Full-sequence attention: the train forward, the encoder
     (``rope=False``) and cross-attention (keys and values from ``kv_x``)."""
-    if kind not in KINDS:
-        raise ValueError(f"unknown attention kind {kind!r}")
     q, k, v = _project_qkv(p, x, kv_x)
     qpos = torch.arange(q.shape[1], dtype=torch.int32, device=x.device)
     kpos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
     if rope:
         q = apply_rope(q, qpos, cfg.rope_theta)
         k = apply_rope(k, kpos, cfg.rope_theta)
-    if _kernel_route(q, k):
-        out = FlashAttentionFn.apply(q, k, v, kind, window)
-    else:
-        out = _attention_core_plain(q, k, v, qpos, kpos, kind, window)
+    out = _attention_core(q, k, v, qpos, kpos, kind, window, grad=True)
+    out = shard(out, "batch", "seq", "heads", "head_dim")
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
@@ -276,16 +388,18 @@ def init_kv_cache(cfg: ArchConfig, batch: int, context: int, dtype: torch.dtype,
 
 
 def _cache_write_prefill(cache: Params, k: torch.Tensor, v: torch.Tensor, kpos: torch.Tensor) -> Params:
-    """Write the last ``S_slots`` tokens of a prefill into the ring, in
-    place (the JAX package donates the cache)."""
+    """Write the last ``S_slots`` tokens of a prefill (kpos = arange(s))
+    into the ring, in place (the JAX package donates the cache)."""
     slots = cache["k"].shape[1]
     s = k.shape[1]
     if s >= slots:
         ktail, vtail, ptail = k[:, -slots:], v[:, -slots:], kpos[-slots:]
-        roll = int(ptail[0]) % slots  # ring alignment: slot index = pos % slots
-        cache["k"].copy_(torch.roll(ktail, roll, dims=1))
-        cache["v"].copy_(torch.roll(vtail, roll, dims=1))
-        cache["pos"].copy_(torch.roll(ptail, roll, dims=0)[None].expand_as(cache["pos"]))
+        roll = (s - slots) % slots  # ring alignment: slot index = pos % slots, ptail[0] = s - slots
+        if roll:  # (a prompt of a whole number of rings needs none: DTensor has no rule for roll)
+            ktail, vtail, ptail = torch.roll(ktail, roll, dims=1), torch.roll(vtail, roll, dims=1), torch.roll(ptail, roll, dims=0)
+        cache["k"].copy_(ktail)
+        cache["v"].copy_(vtail)
+        cache["pos"].copy_(ptail[None].expand_as(cache["pos"]))
         return cache
     cache["k"][:, :s] = k
     cache["v"][:, :s] = v
@@ -304,7 +418,56 @@ def attention_prefill(
     k = apply_rope(k, qpos, cfg.rope_theta)
     out = _attention_core(q, k, v, qpos, qpos, kind, window)
     _cache_write_prefill(cache, k, v, qpos)
+    # placed as the train path places it (the reference leaves it to GSPMD):
+    # a seq_act-sharded output would merge two sharded dims into the
+    # projection's rows, which DTensor plans by a search too slow for 3-D meshes
+    out = shard(out, "batch", "seq", "heads", "head_dim")
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+
+
+def _group_heads(q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+    """(B,S,H,hd) → (B,S,KV,G,hd) for the keys ``kv`` (B,T,KV,hd).  A
+    DTensor q is first gathered over its heads on every mesh dim where
+    ``kv``'s heads are not sharded alike: its heads dim cannot split into
+    (KV, G) over more shards than there are kv heads (32 query heads, 8 kv
+    heads, a 16-way axis), and against a cache sharded over its sequence
+    (the serving cells) DTensor would search a 3-D mesh's plans for the
+    product for minutes.  A decode step's q is one token: the gather is
+    small."""
+    b, s, h, hd = q.shape
+    kvh = kv.shape[2]
+    if is_dtensor(q):
+        from torch.distributed.tensor import Replicate, Shard
+
+        kv_pl = tuple(kv.placements) if is_dtensor(kv) else (Replicate(),) * q.device_mesh.ndim
+        pl = tuple(Replicate() if p == Shard(2) and kp != Shard(2) else p for p, kp in zip(q.placements, kv_pl))
+        if pl != tuple(q.placements):
+            q = q.redistribute(q.device_mesh, pl)
+    return q.reshape(b, s, kvh, h // kvh, hd)
+
+
+def _write_slots(dst: torch.Tensor, slot: torch.Tensor, val: torch.Tensor, names: Tuple[str, ...],
+                 guard: bool = False) -> None:
+    """``dst[b, slot[b]] = val[b]`` for every row b, in place; with
+    ``guard`` a slot outside ``dst`` writes nothing (MLA's cache is not a
+    ring).  A DTensor cache takes the reference's one-hot select over the
+    slot dim (elementwise, so it partitions when the cache sequence is
+    sharded; an outside slot matches none) placed by the logical
+    ``names``, then copies it back; a plain one an indexed write of the B
+    rows."""
+    if is_dtensor(dst):
+        oh = torch.arange(dst.shape[1], device=slot.device)[None, :] == slot[:, None]  # (B, slots)
+        oh = oh.reshape(oh.shape + (1,) * (dst.dim() - 2))
+        dst.copy_(shard(torch.where(oh, val[:, None].to(dst.dtype), dst), *names))
+        return
+    rows = torch.arange(dst.shape[0], device=dst.device)
+    if not guard:
+        dst[rows, slot.long()] = val.to(dst.dtype)
+        return
+    inside = (slot >= 0) & (slot < dst.shape[1])
+    idx = slot.clamp(0, dst.shape[1] - 1).long()
+    keep = inside.reshape(inside.shape + (1,) * (val.dim() - 1))
+    dst[rows, idx] = torch.where(keep, val.to(dst.dtype), dst[rows, idx])
 
 
 def attention_decode(
@@ -320,17 +483,15 @@ def attention_decode(
     new token per request.  Writes each row's slot of ``cache`` in place
     (the JAX package donates the cache) and returns it."""
     b = x.shape[0]
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    g = h // kvh
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(p, x)  # (B,1,·,hd)
     q = apply_rope(q, positions[:, None], cfg.rope_theta)
     k = apply_rope(k, positions[:, None], cfg.rope_theta)
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
-    slot = (positions % ck.shape[1]).long()
-    rows = torch.arange(b, device=x.device)
-    ck[rows, slot] = k[:, 0].to(ck.dtype)
-    cv[rows, slot] = v[:, 0].to(cv.dtype)
-    cpos[rows, slot] = positions.to(cpos.dtype)
+    slot = positions % ck.shape[1]
+    _write_slots(ck, slot, k[:, 0], ("batch", "seq_kv", "kv_heads", "head_dim"))
+    _write_slots(cv, slot, v[:, 0], ("batch", "seq_kv", "kv_heads", "head_dim"))
+    _write_slots(cpos, slot, positions, ("batch", "seq_kv"))
     # visibility: position-tagged slots, per-request mask
     qp = positions[:, None]
     visible = (cpos >= 0) & (cpos <= qp)
@@ -338,7 +499,7 @@ def attention_decode(
         visible &= cpos > qp - window
     elif kind == "chunked":
         visible &= (cpos // window) == (qp // window)
-    qg = q.reshape(b, 1, kvh, g, hd)
+    qg = _group_heads(q, ck)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg, ck).float()
     scores = scores / math.sqrt(hd)
     scores = scores.masked_fill(~visible[:, None, None, None, :], NEG_INF)
@@ -370,7 +531,7 @@ def _mla_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig, qpos: torch.Tensor):
     q = torch.einsum("bsr,rhe->bshe", q, p["wq_b"])  # (B,S,H,dn+dr)
     q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], qpos, cfg.rope_theta)
     kv = torch.einsum("bsd,de->bse", x, p["wkv_a"])  # (B,S,kvr+dr)
-    c_kv = kv[..., :kvr]
+    c_kv = shard(kv[..., :kvr], "batch", "seq", "latent")
     k_rope = apply_rope(kv[..., kvr:][:, :, None, :], qpos, cfg.rope_theta)[:, :, 0]
     return q_nope, q_rope, c_kv, k_rope
 
@@ -378,35 +539,87 @@ def _mla_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig, qpos: torch.Tensor):
 def _mla_softmax(s_nope: torch.Tensor, s_rope: torch.Tensor, mask: torch.Tensor, cfg: ArchConfig, dtype: torch.dtype) -> torch.Tensor:
     """The two score terms summed in their own dtype, then f32 (the
     reference's order: in bf16 the sum rounds before the cast), scaled,
-    masked, softmaxed and cast to ``dtype``."""
+    masked, softmaxed and cast to ``dtype``; scores and probabilities
+    (B, H, Sq, T) placed over heads or, under ``seq_act``, the queries."""
     scores = (s_nope + s_rope).float() / math.sqrt(cfg.nope_head_dim + cfg.rope_head_dim)
+    scores = shard(scores, "batch", "heads", "seq_act", "seq_kv")
     scores = scores.masked_fill(~mask, NEG_INF)
-    return torch.softmax(scores, dim=-1).to(dtype)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return shard(probs, "batch", "heads", "seq_act", "seq_kv")
+
+
+def _shard_q(q_nope: torch.Tensor, q_rope: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MLA queries placed over heads or, under ``seq_act``, the sequence."""
+    return (shard(q_nope, "batch", "seq_act", "heads", "head_dim"),
+            shard(q_rope, "batch", "seq_act", "heads", "head_dim"))
 
 
 def _mla_attend(p: Params, q_nope, q_rope, c_kv, k_rope, mask, cfg: ArchConfig) -> torch.Tensor:
     """Absorbed-matmul attention (decode): wk_b folded into the query, so
     the scores live in latent space and the latent cache is never expanded
     per head."""
+    q_nope, q_rope = _shard_q(q_nope, q_rope)
     q_lat = torch.einsum("bshe,rhe->bshr", q_nope, p["wk_b"])
     s_nope = torch.einsum("bshr,btr->bhst", q_lat, c_kv)
     s_rope = torch.einsum("bshe,bte->bhst", q_rope, k_rope)
     probs = _mla_softmax(s_nope, s_rope, mask, cfg, c_kv.dtype)
     ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_kv)
     out = torch.einsum("bshr,rhe->bshe", ctx_lat, p["wv_b"])  # (B,Sq,H,dv)
+    out = shard(out, "batch", "seq_act", "heads", "head_dim")
     return torch.einsum("bshe,hed->bsd", out, p["wo"])
 
 
 def _mla_attend_reconstructed(p: Params, q_nope, q_rope, c_kv, k_rope, mask, cfg: ArchConfig) -> torch.Tensor:
     """Full-sequence MLA (prefill and train) through per-head K/V
-    reconstructed from the latent; materialises (B, H, S, S) f32 scores."""
+    reconstructed from the latent; materialises (B, H, S, S) f32 scores.
+    DTensors under ``seq_act`` run it on each rank's block of queries
+    (:func:`_mla_attend_local`)."""
+    if is_dtensor(q_nope) and _seq_act():
+        return _mla_attend_local(p, q_nope, q_rope, c_kv, k_rope, cfg)
     k_nope = torch.einsum("btr,rhe->bthe", c_kv, p["wk_b"])  # (B,T,H,dn)
     v = torch.einsum("btr,rhe->bthe", c_kv, p["wv_b"])  # (B,T,H,dv)
+    q_nope, q_rope = _shard_q(q_nope, q_rope)
     s_nope = torch.einsum("bshe,bthe->bhst", q_nope, k_nope)
     s_rope = torch.einsum("bshe,bte->bhst", q_rope, k_rope)
     probs = _mla_softmax(s_nope, s_rope, mask, cfg, v.dtype)
     out = torch.einsum("bhst,bthe->bshe", probs, v)
+    out = shard(out, "batch", "seq_act", "heads", "head_dim")
     return torch.einsum("bshe,hed->bsd", out, p["wo"])
+
+
+def _mla_attend_local(p: Params, q_nope, q_rope, c_kv, k_rope, cfg: ArchConfig) -> torch.Tensor:
+    """:func:`_mla_attend_reconstructed` of DTensors under ``seq_act`` on
+    each rank's shards (``local_map``): the queries sharded over batch and
+    sequence as the rules say, the latent and shared key over the batch
+    only, the weights whole; each rank attends its block of queries to
+    every key (causal by absolute position) and projects it.  The output
+    (B, S, D) keeps the queries' sharding.  (DTensor's own einsums here
+    merge two sharded dims into one, whose placement DTensor plans by a
+    search too slow for a 3-D mesh.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    q_nope, q_rope = _shard_q(q_nope, q_rope)
+    mesh = q_nope.device_mesh
+    q_pl = tuple(pl if isinstance(pl, Shard) and pl.dim in (0, 1) else Replicate() for pl in q_nope.placements)
+    kv_pl = tuple(Shard(0) if pl == Shard(0) else Replicate() for pl in q_pl)
+    w_pl = (Replicate(),) * mesh.ndim
+    # replicated inputs read by several query shards get one partial gradient from each
+    kv_grad = tuple(Partial() if pl == Shard(1) else kp for pl, kp in zip(q_pl, kv_pl))
+    w_grad = tuple(Partial() if isinstance(pl, Shard) else Replicate() for pl in q_pl)
+    s0 = compute_local_shape_and_global_offset(q_nope.shape, mesh, q_pl)[1][1]
+
+    def body(qn, qr, ck, kr, wk, wv, wo):
+        contiguous_grads(qn, qr, ck, kr, wk, wv, wo)
+        qpos = torch.arange(s0, s0 + qn.shape[1], dtype=torch.int32, device=qn.device)
+        kpos = torch.arange(ck.shape[1], dtype=torch.int32, device=ck.device)
+        mask = (qpos[:, None] >= kpos[None, :])[None, None]
+        return _mla_attend_reconstructed({"wk_b": wk, "wv_b": wv, "wo": wo}, qn, qr, ck, kr, mask, cfg)
+
+    return local_map(body, out_placements=list(q_pl), in_placements=(q_pl, q_pl, kv_pl, kv_pl, w_pl, w_pl, w_pl),
+                     in_grad_placements=(q_pl, q_pl, kv_grad, kv_grad, w_grad, w_grad, w_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q_nope, q_rope, c_kv, k_rope, p["wk_b"], p["wv_b"], p["wo"])
 
 
 def _causal(s: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -448,15 +661,10 @@ def mla_decode(
     """One-token step.  Writes each row's slot ``positions`` of ``cache`` in
     place; a position outside the context writes nothing, as the
     reference's one-hot write (its slot is rewritten with what it held)."""
-    b = x.shape[0]
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions[:, None])
     ck, kr, cpos = cache["c_kv"], cache["k_rope"], cache["pos"]
-    ctx = ck.shape[1]
-    inside = (positions >= 0) & (positions < ctx)
-    slot = positions.clamp(0, ctx - 1).long()
-    rows = torch.arange(b, device=x.device)
-    ck[rows, slot] = torch.where(inside[:, None], c_kv[:, 0].to(ck.dtype), ck[rows, slot])
-    kr[rows, slot] = torch.where(inside[:, None], k_rope[:, 0].to(kr.dtype), kr[rows, slot])
-    cpos[rows, slot] = torch.where(inside, positions.to(cpos.dtype), cpos[rows, slot])
+    _write_slots(ck, positions, c_kv[:, 0], ("batch", "seq_kv", "latent"), guard=True)
+    _write_slots(kr, positions, k_rope[:, 0], ("batch", "seq_kv", None), guard=True)
+    _write_slots(cpos, positions, positions, ("batch", "seq_kv"), guard=True)
     mask = ((cpos >= 0) & (cpos <= positions[:, None]))[:, None, None, :]
     return _mla_attend(p, q_nope, q_rope, ck, kr, mask, cfg), cache

@@ -13,6 +13,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.logical import is_dtensor, shard
+
 __all__ = [
     "Params",
     "dense_init",
@@ -89,7 +91,7 @@ def ffn_init(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype, 
 
 def ffn_apply(p: Params, x: torch.Tensor, gated: bool = True) -> torch.Tensor:
     """SwiGLU, or the tanh-form GELU FFN (``jax.nn.gelu``'s default)."""
-    up = x @ p["w_up"]
+    up = shard(x @ p["w_up"], "batch", "seq", "mlp")
     if gated:
         h = F.silu(x @ p["w_gate"]) * up
     else:
@@ -103,10 +105,16 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype: torch.dtyp
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token cross entropy in f32; ``mask`` (same shape as labels)
-    excludes padding/vision-prefix positions."""
+    excludes padding/vision-prefix positions.  On DTensor logits the gold
+    logit is a masked sum over the (sharded) vocab — exact, one term is
+    nonzero — where a gather across vocab shards has no working rule."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    if is_dtensor(logits):
+        hit = torch.arange(logits.shape[-1], device=labels.device) == labels[..., None]
+        gold = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
     nll = logz - gold
     if mask is not None:
         mask = mask.float()

@@ -51,6 +51,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..sharding.logical import contiguous_grads, is_dtensor, replicate_plain, shard
 from ..tree import tree_map
 from . import attention as attn
 from . import moe as moe_mod
@@ -165,14 +166,51 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
 
 
 def _embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+    table = params["embed"]
+    x = _embed_local(table, tokens) if is_dtensor(table) else table[tokens]
+    return shard(x, "batch", "seq", "embed")
+
+
+def _embed_local(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding gather of a DTensor table on each rank's shards
+    (``local_map``), the vocab-parallel lookup: a rank holding rows
+    [r0, r0 + n) of the table looks up the tokens that fall there and
+    zeroes the rest, and the output is a partial sum over the vocab
+    shards (the reference's gather of vocab-sharded rows, an all-gather
+    of slices under GSPMD).  DTensor has no working rule for the gather
+    itself on every mesh (and none for its backward's ``index_put``).
+    The tokens keep their batch sharding; the table's gradient is a
+    partial sum over the batch shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    tok_pl = tuple(Shard(0) if pl == Shard(0) else Replicate() for pl in tokens.placements)
+    t_pl = tuple(Shard(0) if pl == Shard(0) and tp != Shard(0) else Replicate()
+                 for pl, tp in zip(table.placements, tok_pl))
+    out_pl = [Partial() if pl == Shard(0) else tp for pl, tp in zip(t_pl, tok_pl)]
+    t_grad = tuple(Partial() if tp == Shard(0) else pl for pl, tp in zip(t_pl, tok_pl))
+    r0 = compute_local_shape_and_global_offset(table.shape, mesh, t_pl)[1][0]
+    vocab_sharded = Shard(0) in t_pl
+
+    def body(tl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        contiguous_grads(tl)
+        if not vocab_sharded:
+            return tl[idx]
+        local = idx - r0
+        hit = (local >= 0) & (local < tl.shape[0])
+        return tl[local.clamp(0, tl.shape[0] - 1)] * hit[..., None].to(tl.dtype)
+
+    return local_map(body, out_placements=out_pl, in_placements=(t_pl, tok_pl), in_grad_placements=(t_grad, tok_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(table, tokens)
 
 
 def _embed_inputs(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Token embeddings, behind the VLM's ``prefix`` where the batch has one."""
     x = _embed_tokens(params, batch["tokens"])
     if cfg.frontend == "vision" and "prefix" in batch:
-        x = torch.cat([batch["prefix"].to(x.dtype), x], dim=1)
+        x = shard(torch.cat([batch["prefix"].to(x.dtype), x], dim=1), "batch", "seq", "embed")
     return x
 
 
@@ -197,7 +235,7 @@ def _cross_attend(cp: Params, cfg: ArchConfig, x: torch.Tensor, enc_out: torch.T
 def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]  # (V, d)
-    return torch.einsum("bsd,vd->bsv", x, head)
+    return shard(torch.einsum("bsd,vd->bsv", x, head), "batch", "seq", "vocab")
 
 
 # ------------------------------------------------------------- train forward
@@ -258,6 +296,7 @@ def _decoder_train(
     def body(h: torch.Tensor, lp: Params, cp: Optional[Params], idx: int,
              enc: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         h = h + _mixer_train(lp, rms_norm(h, lp["ln1"], cfg.norm_eps), cfg, idx)
+        h = shard(h, "batch", "seq", "embed")
         if cp is not None:
             h = h + _cross_attend(cp, cfg, h, enc)
         a_loss = None
@@ -266,7 +305,7 @@ def _decoder_train(
             h = h + f
         if shared is not None and idx % cfg.attn_every == 0:
             h = _shared_block_train(shared, h, cfg)
-        return h, a_loss
+        return shard(h, "batch", "seq", "embed"), a_loss
 
     ckpt_kw = None
     if remat != "none":
@@ -295,10 +334,11 @@ def forward_train(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: tokens (B, S) [+ ``prefix`` (B, P, D) | ``frames`` (B, F, D)].
     Returns (logits (B, P + S, V), aux_loss)."""
-    x = _embed_inputs(params, cfg, batch)
-    enc_out = _encode(params, cfg, batch["frames"]) if cfg.is_encdec else None
-    x, aux = _decoder_train(params, cfg, x, enc_out, remat=remat)
-    return _logits(params, cfg, x), aux
+    with replicate_plain(params):
+        x = _embed_inputs(params, cfg, batch)
+        enc_out = _encode(params, cfg, batch["frames"]) if cfg.is_encdec else None
+        x, aux = _decoder_train(params, cfg, x, enc_out, remat=remat)
+        return _logits(params, cfg, x), aux
 
 
 def loss_fn(
@@ -311,13 +351,29 @@ def loss_fn(
     if cfg.frontend == "vision" and "prefix" in batch:
         logits = logits[:, batch["prefix"].shape[1]:]
     labels = batch["labels"]
-    mask = (labels >= 0).float()
-    xent = cross_entropy_loss(logits, torch.clamp_min(labels, 0), mask)
-    total = xent + cfg.router_aux_coef * aux
+    with replicate_plain(params):
+        mask = (labels >= 0).float()
+        xent = cross_entropy_loss(logits, torch.clamp_min(labels, 0), mask)
+        total = xent + cfg.router_aux_coef * aux
     return total, {"loss": total, "xent": xent, "aux": aux}
 
 
 # ------------------------------------------------------------------- caches
+def _shard_cache(cache: Params) -> Params:
+    """The reference's cache annotation: (L, B, S, KV, hd) rings over
+    (batch, seq_kv, kv_heads), 4-dim leaves over (batch, seq_kv).  The
+    reference defines it and calls it nowhere; the port keeps it for
+    parity (the caches are placed by ``sharding.params.cache_specs``)."""
+    def ann(a: torch.Tensor) -> torch.Tensor:
+        if a.dim() == 5:  # (L,B,S,KV,hd)
+            return shard(a, None, "batch", "seq_kv", "kv_heads", "head_dim")
+        if a.dim() == 4:
+            return shard(a, None, "batch", "seq_kv", None)
+        return a
+
+    return tree_map(ann, cache)
+
+
 def _stacked(one: Params, n: int) -> Params:
     return {k: v[None].expand((n,) + v.shape).clone() for k, v in one.items()}
 
@@ -350,6 +406,11 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cac
     """Process the prompt ``batch["tokens"]`` (B, S) [+ ``prefix`` |
     ``frames``]; returns (logits for the last position (B, 1, V), cache
     filled in place)."""
+    with replicate_plain(params):
+        return _prefill(params, cfg, batch, cache)
+
+
+def _prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cache: Params) -> Tuple[torch.Tensor, Params]:
     x = _embed_inputs(params, cfg, batch)
     enc_out = None
     if cfg.is_encdec:  # the cross K/V, once a request
@@ -368,7 +429,7 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cac
             a, _ = attn.mla_prefill(lp["attn"], hn, cfg, _index(cache["kv"], i))
         else:
             a, _ = attn.attention_prefill(lp["attn"], hn, cfg, _index(cache["kv"], i), *_layer_kind(cfg, i))
-        x = x + a
+        x = shard(x + a, "batch", "seq", "embed")  # as the train path: a seq_act mixer hands back its sequence shards
         if enc_out is not None:
             x = x + _cross_attend(_index(params["cross"], i), cfg, x, enc_out)
         if "ln2" in lp:
@@ -400,9 +461,9 @@ def _shared_block(sp: Params, cfg: ArchConfig, x: torch.Tensor, sa: Params, posi
 def _cross_decode(cp: Params, cfg: ArchConfig, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
     """One token's cross-attention against the cached encoder K/V
     (B, encoder_seq, KV, hd)."""
-    b, h, kvh, hd = x.shape[0], cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    b, h, hd = x.shape[0], cfg.n_heads, cfg.resolved_head_dim
     q = torch.einsum("bsd,dhk->bshk", rms_norm(x, cp["ln"], cfg.norm_eps), cp["attn"]["wq"])
-    qg = q.reshape(b, 1, kvh, h // kvh, hd)
+    qg = attn._group_heads(q, ck)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg, ck).float() / math.sqrt(hd)
     probs = torch.softmax(scores, dim=-1).to(cv.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, cv).reshape(b, 1, h, hd)
@@ -430,10 +491,12 @@ def decode_step(
     """One token per row; returns (logits (B, 1, V), cache updated in place).
     The rows run in tiles of :data:`DECODE_TILE`; a partial tile is padded
     with copies of its first row on a copy of its cache rows, which are
-    written back."""
+    written back.  DTensor rows run as one tile: a tile's slice of a
+    batch sharded over the mesh would gather the cache."""
     b = tokens.shape[0]
-    if b == DECODE_TILE:
-        return _decode_tile(params, cfg, tokens, positions, cache), cache
+    if b == DECODE_TILE or is_dtensor(tokens):
+        with replicate_plain(params):
+            return _decode_tile(params, cfg, tokens, positions, cache), cache
     out = []
     for t0 in range(0, b, DECODE_TILE):
         r = min(DECODE_TILE, b - t0)

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
+from ..sharding.logical import contiguous_grads, is_dtensor, shard
 from .layers import Params, dense_init, ffn_apply, ffn_init
 
 __all__ = ["moe_init", "moe_apply", "expert_capacity", "DISPATCH_MODES", "GroupedMatmulFn"]
@@ -75,7 +76,8 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 def _router_probs(p: Params, x: torch.Tensor) -> torch.Tensor:
     """(B,S,E) f32 router probabilities."""
-    return torch.softmax(torch.einsum("bsd,de->bse", x.float(), p["router"]), dim=-1)
+    logits = shard(torch.einsum("bsd,de->bse", x.float(), p["router"]), "batch", "seq", None)  # routing is per-token
+    return torch.softmax(logits, dim=-1)
 
 
 def _route(p: Params, x: torch.Tensor, cfg: ArchConfig):
@@ -95,8 +97,8 @@ def _assign(probs: torch.Tensor, gate_vals: torch.Tensor, gate_idx: torch.Tensor
     cap = expert_capacity(s, cfg)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     # slot-major flattening: slot 0 of every token, then slot 1, …
-    e_idx = gate_idx.transpose(1, 2).reshape(b, k * s)  # (B,kS)
-    gates = gate_vals.transpose(1, 2).reshape(b, k * s)
+    e_idx = shard(gate_idx.transpose(1, 2).reshape(b, k * s), "batch", None)  # (B,kS)
+    gates = shard(gate_vals.transpose(1, 2).reshape(b, k * s), "batch", None)
     assign = _one_hot(e_idx, e).int()  # (B,kS,E)
     pos = ((torch.cumsum(assign, dim=1) - assign) * assign).sum(-1)  # earlier slots on the same expert
     keep = pos < cap
@@ -119,7 +121,7 @@ def _queue_rows(e_idx: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor, cap:
 def _dispatch_scatter(x: torch.Tensor, rows: torch.Tensor, cap: int, e: int) -> torch.Tensor:
     """(B,S,D) tokens → (E,B,C,D) expert queues, one writer per kept row."""
     b, s, d = x.shape
-    x_rep = x.repeat(1, rows.shape[1] // s, 1)  # slot-major: (B, kS, D)
+    x_rep = shard(x.repeat(1, rows.shape[1] // s, 1), "batch", "moe_tokens", "embed")  # slot-major: (B, kS, D)
     flat = x.new_zeros((e * b * cap + 1, d))  # + the spare row of dropped slots
     flat[rows.reshape(-1)] = x_rep.reshape(-1, d)
     return flat[:-1].view(e, b, cap, d)
@@ -129,6 +131,7 @@ def _combine_gather(expert_out: torch.Tensor, rows: torch.Tensor, keep: torch.Te
     """(E,B,C,D) expert outputs → (B,S,D) via gather + gated sum over k."""
     e, b, cap, d = expert_out.shape
     hit = expert_out.reshape(e * b * cap, d)[torch.where(keep, rows, 0)]  # (B,kS,D)
+    hit = shard(hit, "batch", "moe_tokens", "embed")
     hit = torch.where(keep[..., None], hit, 0) * gates[..., None].to(hit.dtype)
     return hit.reshape(b, -1, s, d).sum(dim=1)
 
@@ -157,7 +160,31 @@ class GroupedMatmulFn(torch.autograd.Function):
 
 
 def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E, R, D) × w (E, D, F): :class:`GroupedMatmulFn` on CUDA tensors,
+    the plain version on the CPU; DTensors on each rank's experts and rows
+    (``local_map``), the same route per shard."""
+    if is_dtensor(x):
+        return _expert_matmul_local(x, w)
     return GroupedMatmulFn.apply(x, w) if x.is_cuda else kops.expert_ffn_matmul(x, w)
+
+
+def _expert_matmul_local(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`_expert_matmul` of DTensors on local shards: x keeps its
+    expert (dim 0) and row (dim 1) sharding, w follows x's expert sharding
+    and is gathered elsewhere; the output is placed as x.  w's gradient is
+    a partial sum over x's row shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    x_pl = tuple(pl if isinstance(pl, Shard) and pl.dim in (0, 1) else Replicate() for pl in x.placements)
+    w_pl = tuple(Shard(0) if pl == Shard(0) else Replicate() for pl in x_pl)
+    def body(xl: torch.Tensor, wl: torch.Tensor) -> torch.Tensor:
+        contiguous_grads(xl, wl)
+        return _expert_matmul(xl, wl)
+
+    w_grad = tuple(Partial() if pl == Shard(1) else wp for pl, wp in zip(x_pl, w_pl))  # one partial a row shard
+    return local_map(body, out_placements=list(x_pl), in_placements=(x_pl, w_pl), in_grad_placements=(x_pl, w_grad),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(x, w)
 
 
 def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, dispatch_mode: str = "scatter") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -175,12 +202,13 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, dispatch_mode: str = 
         disp = _one_hot(e_idx, e).to(x.dtype)[..., None] * slot_oh[:, :, None, :]  # (B,kS,E,C)
         x_rep = x.repeat(1, e_idx.shape[1] // s, 1)
         expert_in = torch.einsum("bkec,bkd->ebcd", disp, x_rep).contiguous()
+    expert_in = shard(expert_in, "experts", "batch", "expert_cap", "embed")
     q = expert_in.view(e, b * cap, d)  # one (E, B·C, D) batch for the kernel
     if cfg.gated_ffn:
         h = F.silu(_expert_matmul(q, p["w_gate"])) * _expert_matmul(q, p["w_up"])
     else:
         h = F.gelu(_expert_matmul(q, p["w_up"]), approximate="tanh")
-    expert_out = _expert_matmul(h, p["w_down"]).view(e, b, cap, d)
+    expert_out = shard(_expert_matmul(h, p["w_down"]).view(e, b, cap, d), "experts", "batch", "expert_cap", "embed")
     if dispatch_mode == "scatter":
         out = _combine_gather(expert_out, rows, keep, gates, s)
     else:

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
+from ..sharding.logical import contiguous_grads, is_dtensor, shard
 from .layers import Params, dense_init, rms_norm
 
 __all__ = ["ssm_init", "ssm_apply", "init_ssm_cache", "ssm_decode", "ssd_chunked", "SSDChunkFn"]
@@ -116,6 +117,36 @@ def _chunk_blocks_plain(xc, ac, a_cum, b, cc, bsz, nc, chunk, g, n, rep):
     return y_diag, states
 
 
+def _chunk_blocks_local(xc, ac, a_cum, b, c, cc, g, n):
+    """Steps 1 and 2 of DTensors on each rank's shards (``local_map``):
+    the kernel on CUDA shards, the plain branch on CPU and meta ones.
+    Batch (dim 0) and heads (dim 3 of xc (B,nc,Q,H,P)) stay as xc's
+    placements; b and c (B,S,G,N) follow the batch sharding only — one
+    group, so every local head reads it whole, and their gradients are
+    partial sums over the head shards.  Out: y_diag placed as xc,
+    the states (B,nc,H,P,N) with the heads sharding on their dim 2."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if g != 1:
+        raise NotImplementedError(f"sharded SSD blocks take one group of B/C, got {g}")
+    x_pl = tuple(pl if isinstance(pl, Shard) and pl.dim in (0, 3) else Replicate() for pl in xc.placements)
+    bc_pl = tuple(pl if pl == Shard(0) else Replicate() for pl in x_pl)
+    st_pl = tuple(Shard(2) if pl == Shard(3) else pl for pl in x_pl)
+
+    def body(xl, acl, a_cuml, bl, cl, ccl):
+        contiguous_grads(xl, acl, a_cuml, bl, cl, ccl)
+        bsz, nc, chunk, h = xl.shape[:4]
+        if xl.is_cuda:
+            return _chunk_blocks_kernel(xl, acl, bl, cl, bsz, nc, chunk, 1, n)
+        return _chunk_blocks_plain(xl, acl, a_cuml, bl, ccl, bsz, nc, chunk, 1, n, h)
+
+    bc_grad = tuple(Partial() if pl == Shard(3) else bp for pl, bp in zip(x_pl, bc_pl))  # one partial a head shard
+    return local_map(body, out_placements=(x_pl, st_pl), in_placements=(x_pl, x_pl, x_pl, bc_pl, bc_pl, x_pl),
+                     in_grad_placements=(x_pl, x_pl, x_pl, bc_grad, bc_grad, x_pl),
+                     device_mesh=xc.device_mesh, redistribute_inputs=True)(xc, ac, a_cum, b, c, cc)
+
+
 def ssd_chunked(
     x: torch.Tensor,  # (B, S, H, P) pre-discretized inputs (x * dt)
     a_dt: torch.Tensor,  # (B, S, H)  A * dt (negative)
@@ -143,7 +174,9 @@ def ssd_chunked(
     ac = a_dt.reshape(bsz, nc, chunk, h).float()
     a_cum = torch.cumsum(ac, dim=2)  # (B,nc,Q,H)
     cc = c.reshape(bsz, nc, chunk, g, n).repeat_interleave(rep, dim=3)  # (B,nc,Q,H,N)
-    if x.is_cuda:
+    if is_dtensor(xc):
+        y_diag, states = _chunk_blocks_local(xc, ac, a_cum, b, c, cc, g, n)
+    elif x.is_cuda:
         y_diag, states = _chunk_blocks_kernel(xc, ac, b, c, bsz, nc, chunk, g, n)
     else:
         y_diag, states = _chunk_blocks_plain(xc, ac, a_cum, b, cc, bsz, nc, chunk, g, n, rep)
@@ -214,6 +247,7 @@ def ssm_apply(
     z, xbc, dt = _in_proj_split(p, u, cfg)
     xbc, conv_state = _conv_apply(p, xbc, None, cfg)
     x, b, c, dt, a = _ssd_inputs(p, xbc, dt, cfg)
+    x = shard(x, "batch", "seq", "ssm_heads", None)
     xd = x * dt[..., None].to(x.dtype)
     a_dt = a * dt  # (B,S,H)
     y, final_state = ssd_chunked(xd, a_dt, b, c, cfg.ssm_chunk)

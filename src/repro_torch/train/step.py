@@ -13,6 +13,12 @@ one updates ``state`` in place (parameters and moments through
 full-width run holds one copy of the optimizer state.  Gradients come from
 ``torch.autograd.grad`` over the parameter leaves, which require grad only
 for the length of the forward and backward.
+
+A state of DTensors (placed by :mod:`repro_torch.sharding.params`) takes
+the same step on each rank's shards; a DTensor op picks its output's
+placement by its own strategy, so every state leaf is redistributed back
+to the placement it came in with, and the metrics come back as plain
+(replicated) tensors.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..models import model as model_lib
 from ..optim import OptHParams, adamw_init, adamw_update
+from ..sharding.logical import is_dtensor, replicate_plain
 from ..tree import leaves as tree_leaves
 from ..tree import tree_map, unflatten
 from .grad_sync import compress_grads_int8_ef
@@ -82,7 +89,7 @@ def loss_and_grads(
     for p in leaves:
         p.requires_grad_(True)
     try:
-        with torch.enable_grad():
+        with torch.enable_grad(), replicate_plain(params):  # remat reruns forwards inside grad
             total, metrics = model_lib.loss_fn(params, cfg, batch, remat=remat)
             grads = torch.autograd.grad(total, leaves, allow_unused=True)
     finally:
@@ -107,6 +114,7 @@ def make_train_step(
     tcfg: TrainConfig = TrainConfig(),
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        placed = _placements(state)
         params = state["params"]
         m = tcfg.microbatches
         if m == 1:
@@ -131,6 +139,36 @@ def make_train_step(
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss_mean"] = l
+        if placed is not None:
+            state = _replace(state, placed)
+            metrics = {k: v.full_tensor() if is_dtensor(v) else v for k, v in metrics.items()}
         return state, metrics
 
     return train_step
+
+
+def _placements(state: TrainState) -> Optional[List[Any]]:
+    """Each leaf's (mesh, placements) in :func:`leaves` order (None for a
+    plain leaf), or None for a plain state."""
+    flat = tree_leaves(state)
+    if not any(is_dtensor(t) for t in flat):
+        return None
+    return [(t.device_mesh, tuple(t.placements)) if is_dtensor(t) else None for t in flat]
+
+
+def _replace(state: TrainState, placed: List[Any]) -> TrainState:
+    """Put every DTensor leaf of ``state`` back on its recorded placement,
+    in the state's own dicts (the step updates the state in place)."""
+    it = iter(placed)
+
+    def walk(d: Dict[str, Any]) -> None:
+        for k in sorted(d):  # :func:`leaves` order
+            if isinstance(d[k], dict):
+                walk(d[k])
+                continue
+            where = next(it)
+            if where is not None and tuple(d[k].placements) != where[1]:
+                d[k] = d[k].redistribute(*where)
+
+    walk(state)
+    return state

@@ -13,7 +13,12 @@ Port of ``repro/train/trainer.py``:
   the host copy is taken before ``save`` returns) and once more at the end,
   waited for.  The format is the reference's, so a run of either package
   resumes in the other;
-* **step-time watchdog**: flags straggler steps and records them.
+* **step-time watchdog**: flags straggler steps and records them;
+* **sharding**: inside a rules context with a mesh
+  (:func:`repro_torch.sharding.use_rules`, bound by the launcher's
+  ``--production``), the state is placed as DTensors by ``param_specs`` and
+  ``opt_specs(zero=True)`` and each batch by ``batch_specs``; the step
+  keeps every leaf on its placement.
 
 The train step updates the state in place (see
 :mod:`repro_torch.train.step`), where the reference's ``jit`` donates it,
@@ -34,6 +39,8 @@ from ..core.executor import AMTExecutor
 from ..data import PrefetchingLoader, SyntheticLM
 from ..device import resolve_device
 from ..optim import OptHParams
+from ..sharding.logical import PartitionSpec, current_rules
+from ..sharding.params import batch_specs, distribute_tree, opt_specs, param_specs
 from .step import TrainConfig, TrainState, init_train_state, make_train_step
 
 __all__ = ["Trainer", "TrainerConfig"]
@@ -82,7 +89,24 @@ class Trainer:
         for k in ("prefix", "frames"):  # the frontends' stubs arrive in f32
             if k in batch:
                 batch[k] = batch[k].to(getattr(torch, self.arch.dtype))
+        rules = current_rules()
+        if rules is not None and rules.mesh is not None:
+            batch = distribute_tree(batch, rules.mesh, batch_specs(batch, rules))
         return batch
+
+    def _place(self, state: TrainState) -> TrainState:
+        """The state as DTensors on the active rules' mesh (params by
+        ``param_specs``, moments by ``opt_specs(zero=True)``, EF as the
+        params); unchanged without a mesh."""
+        rules = current_rules()
+        if rules is None or rules.mesh is None:
+            return state
+        p_spec = param_specs(state["params"], rules)
+        spec = {"params": p_spec, "opt": opt_specs(state["opt"], state["params"], rules, zero=True, mesh=rules.mesh),
+                "step": PartitionSpec()}
+        if "ef" in state:
+            spec["ef"] = p_spec
+        return distribute_tree(state, rules.mesh, spec)
 
     # ------------------------------------------------------------------ run
     def train(self) -> Dict[str, Any]:
@@ -100,6 +124,7 @@ class Trainer:
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
             state, start_step = self.ckpt.restore(state)  # the latest step, into the built state in place
             print(f"restored step {start_step} from {self.ckpt.dir}", flush=True)
+        state = self.state = self._place(state)
         self.start_step = start_step
         source = SyntheticLM(self.arch, rc.batch, rc.seq, seed=rc.seed)
         loader = PrefetchingLoader(source, self.executor, depth=4, start_index=start_step)

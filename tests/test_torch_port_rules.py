@@ -86,7 +86,11 @@ def test_port_files_exist():
                 "src/repro_torch/amtsim/workloads.py", "src/repro_torch/analysis/facts.py",
                 "src/repro_torch/analysis/callgraph.py", "src/repro_torch/analysis/registry.py",
                 "src/repro_torch/analysis/passes.py", "src/repro_torch/analysis/gates.py",
-                "src/repro_torch/analysis/cli.py", "tools/torch_analyze.py"):
+                "src/repro_torch/analysis/cli.py", "tools/torch_analyze.py",
+                "src/repro_torch/sharding/logical.py", "src/repro_torch/sharding/params.py",
+                "src/repro_torch/sharding/pipeline.py", "src/repro_torch/roofline/analysis.py",
+                "src/repro_torch/roofline/op_count.py", "src/repro_torch/launch/mesh.py",
+                "src/repro_torch/launch/specs.py", "src/repro_torch/launch/dryrun.py"):
         assert rel in names
     assert "src/repro_torch/core/comm/completion.py" not in names  # the queues live at the reference's path
     for test in ("test_torch_train.py", "test_torch_train_families.py", "test_torch_checkpoint.py",
@@ -94,7 +98,8 @@ def test_port_files_exist():
                  "test_torch_fabric_device.py", "test_torch_parcel.py", "test_torch_completion.py",
                  "test_torch_parcelports.py", "test_torch_protocol_engine.py", "test_torch_amtsim.py",
                  "test_torch_progress_engine.py", "test_torch_analysis.py",
-                 "test_torch_sanitize_session.py"):  # CPU parity with JAX
+                 "test_torch_sanitize_session.py", "test_torch_sharding.py", "test_torch_specs_roofline.py",
+                 "test_torch_dryrun.py", "test_torch_sharded_gloo.py"):  # CPU parity with JAX
         assert (REPO / "tests" / test).is_file()
     for cu in ("flash_attention", "ssd_scan", "moe_gmm", "grad_pack"):
         assert (REPO / "src" / "repro_torch" / "kernels" / "csrc" / f"{cu}.cu").is_file()

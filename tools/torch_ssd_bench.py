@@ -28,7 +28,6 @@ ROOT = Path(__file__).resolve().parents[1]
 # (B, H, G, nc, Q, P, N): mamba2-130m and zamba2-1.2b at S=1024
 SHAPES = {"mamba2-130m": (1, 24, 1, 16, 64, 64, 128), "zamba2-1.2b": (1, 64, 1, 16, 64, 64, 64)}
 SLICES = (1, 2, 3, 4, 6, 8)
-PEAK_BYTES = 3.35e12
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -52,9 +51,11 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def bound_ms(shape) -> float:
     """a_dt, x, b, c read once, y and the f32 states written once."""
+    from repro_torch.roofline import HW  # the card's data-sheet HBM3 rate, one copy
+
     bsz, h, g, nc, q, p, n = shape
     nbytes = 4 * bsz * h * nc * q + 2 * bsz * nc * q * (2 * h * p + 2 * g * n) + 4 * bsz * h * nc * p * n
-    return nbytes / PEAK_BYTES * 1e3
+    return nbytes / HW().hbm_bw * 1e3
 
 
 def main() -> int:
