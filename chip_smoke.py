@@ -93,7 +93,8 @@ nothing of the JAX package.  In order, it:
 6. times each kernel, its plain version and the library yardstick for the
    same function, with CUDA events (wall a call, the wrapper's host time
    included), and the kernel and the yardstick by the profiler's device
-   time a call; flash attention at the serving, deepseek and train shapes
+   time a call (taken in a fresh process of this script, from two whole
+   sessions, never below the bound: ``device_times``); flash attention at the serving, deepseek and train shapes
    and at whisper's, internvl2's and llama4's; the grouped matmul at
    deepseek's and llama4's;
    the SSD kernel at mamba2's and zamba2's, with its share of the bound
@@ -135,15 +136,20 @@ nothing of the JAX package.  In order, it:
    ``make_rules``: the losses and every state leaf bit for bit the
    unsharded step's (one device runs the same local ops), the flash
    kernel (through ``local_map`` inside ``FlashAttentionFn``'s route)
-   launching as often as unsharded; then the ``seq_act`` forward of
-   ``qwen2-7b`` and ``minicpm3-4b`` (first 2 layers, full width, f32)
-   within 2e-4 of max |logit| of the default forward; (b) the dry-run
-   (``repro_torch.launch.dryrun``, host work in subprocesses started
-   before (a)): the dense floor's cells and a decode cell of every other
-   family on the 16×16 and 2×16×16 fake meshes and the one-card view, a
-   line a cell (argument and temp bytes, whether they fit this card,
-   FLOPs, collective bytes, the roofline's terms on the H100's data-sheet
-   peaks); every dense cell must be ``ok``; (c) the bytes that
+   launching as often as unsharded; the same for ``mamba2-130m`` (24
+   layers), ``zamba2-1.2b`` (38) and ``deepseek-moe-16b`` (4 of 28) at
+   their phase-5b B, S and remat (the unsharded state kept on the host),
+   and a sharded prefill and 3 decode steps of deepseek (4 layers) and
+   zamba2 under the serving rules, logits bit for bit; then the
+   ``seq_act`` forward of ``qwen2-7b`` and ``minicpm3-4b`` (first 2
+   layers, full width, f32) within 2e-4 of max |logit| of the default
+   forward; (b) the dry-run (``repro_torch.launch.dryrun``, host work in
+   subprocesses started before (a)): every cell of every model on the
+   16×16 and 2×16×16 fake meshes and the one-card view, a line a cell
+   (argument and temp bytes, whether they fit this card, FLOPs,
+   collective bytes, the roofline's terms on the H100's data-sheet
+   peaks); every applicable cell must be ``ok`` (102), the other 18
+   ``skipped``; (c) the bytes that
    ``launch/specs.py`` predicts on meta for tinyllama's parameters, its
    phase-4 cache and train state against the card's tensors, and the
    FLOPs of the products no kernel replaces over a prefill and a train
@@ -308,37 +314,57 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3, bound_ms: float = 0.0) -> float:
     """Mean device milliseconds per call: the summed time of the kernels
     that ``iters`` calls ran on the card, from ``torch.profiler`` (a 20-40
-    µs kernel's event-timed wall reads its wrapper's host time)."""
+    µs kernel's event-timed wall reads its wrapper's host time).
+
+    A session counts only when it recorded every launch of its calls: its
+    kernel records are a whole multiple of ``iters`` and as many as in
+    another session of the same calls, and its time is no less than
+    ``bound_ms`` (the least time the card could take).  Now and then, for
+    a spell of up to about 0.4 s, the card's sessions come back with no
+    kernel records, or with part of them
+    (tools/torch_profiler_sessions.py): a session that does not count is
+    traced again after PROFILE_PAUSE_S, which outlasts such a spell, up to
+    PROFILE_TRIES sessions; then the reading fails.  A session of a whole
+    model call (thousands of kernels) loses a few records every time, so
+    this times kernels, not models."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    # now and then, for a spell of up to about 0.4 s, the card's sessions
-    # come back with no kernel records (tools/torch_profiler_sessions.py):
-    # trace again after PROFILE_PAUSE_S, which outlasts such a spell, and
-    # the warm-up calls, up to PROFILE_TRIES
+    counted, seen = [], []
     for attempt in range(1, PROFILE_TRIES + 1):
-        if attempt > 1:
-            time.sleep(PROFILE_PAUSE_S)
-        for _ in range(warmup):
-            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            if attempt > 1:
-                print(f"torch.profiler: device time seen on attempt {attempt}")
-            return us / 1e3 / iters
-    fail(f"torch.profiler saw no device time in {PROFILE_TRIES} sessions: device times not measured")
+        # the warm-up calls run traced but unrecorded (the profiler's own
+        # warm-up step), so the kernels that tracing misses as it starts are
+        # not timed ones; the counts below catch any it misses later
+        traced = []
+        with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: traced.extend(p.key_averages())) as prof:
+            for calls in (warmup, iters):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        kernels = [e for e in traced if e.device_type == DeviceType.CUDA]
+        records = sum(e.count for e in kernels)
+        ms = sum(e.device_time_total for e in kernels) / 1e3 / iters
+        seen.append((records, ms))
+        if records and records % iters == 0 and ms >= bound_ms:
+            if records in counted:
+                if attempt > 2:
+                    print(f"torch.profiler: a whole session on attempt {attempt}; sessions (records, ms a call): {seen}")
+                return ms
+            counted.append(records)
+            continue
+        time.sleep(PROFILE_PAUSE_S)
+    fail(f"torch.profiler recorded no two whole sessions of {iters} calls in {PROFILE_TRIES} (bound {bound_ms} ms); "
+         f"sessions (kernel records, ms a call): {seen}: device times not measured")
 
 
-PROFILE_TRIES, PROFILE_PAUSE_S = 3, 1.0
+PROFILE_TRIES, PROFILE_PAUSE_S = 6, 1.0
 
 
 def host_us(fn, iters: int = 200, warmup: int = 5) -> float:
@@ -380,20 +406,21 @@ def sdpa_yardstick(case, q, k, v):
     return lambda: sdpa(qt, kt, vt, attn_mask=mask)
 
 
-def time_attention(flash_attention, attention_plain, case, gen) -> dict:
+def time_attention(flash_attention, attention_plain, case, gen, dev) -> dict:
     """Phase 6: the kernel, its plain version and SDPA on one case, its mask
-    included: event-timed walls and, for the kernel and SDPA, device
-    times."""
+    included: event-timed walls, beside the kernel's and SDPA's device
+    times ``dev`` (:func:`device_times`)."""
     _, s, _, _, _, causal, window, chunk, _ = case
     kw = dict(causal=causal, window=window, chunk=chunk)
     q, k, v = attention_inputs(case, gen)
     kernel = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
     lib = sdpa_yardstick(case, q, k, v)
     plain_iters = 50 if s <= PLAIN_Q_BLOCK else 5
+    bound, bound_by = attention_bound_ms(case)
     t = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(lambda: attention_plain(q, k, v, **kw), iters=plain_iters, warmup=1),
          "library_ms": cuda_ms(lib), "again_ms": cuda_ms(kernel),
-         "device_ms": device_ms(kernel), "library_device_ms": device_ms(lib)}
-    t["bound_ms"], t["bound_by"] = attention_bound_ms(case)
+         "device_ms": dev["kernel"], "library_device_ms": dev["library"],
+         "bound_ms": bound, "bound_by": bound_by}
     print(f"flash_attention {case}: kernel={t['ms']} ms (again {t['again_ms']} ms) device={t['device_ms']} ms "
           f"plain={t['plain_ms']} ms sdpa={t['library_ms']} ms (device {t['library_device_ms']} ms) "
           f"bound={t['bound_ms']} ms ({t['bound_by']})")
@@ -1053,17 +1080,18 @@ def batch_invariance(arch, params) -> None:
     if not all(same.values()):
         fail(f"{arch.name}: decode_step rows depend on the batch size: {diffs}")
     # what the tile's padding costs a fleet worker's 4-row step (its cache
-    # rows copied out to an 8-row tile and back) against an 8-row step
-    wall, dev = {}, {}
+    # rows copied out to an 8-row tile and back) against an 8-row step; no
+    # profiler reading: a session of ten model calls (~20,000 kernels)
+    # drops some of its records, so it never counts as whole (device_ms)
+    wall = {}
     with torch.inference_mode():
         for b in (4, 8):
             cache = init_cache(arch, b, 2048, "cuda")
             toks, pos = start[:b], torch.full((b,), 100, dtype=torch.long, device="cuda")
             wall[b] = cuda_ms(lambda: decode_step(params, arch, toks, pos, cache), iters=20)
-            dev[b] = device_ms(lambda: decode_step(params, arch, toks, pos, cache), iters=10)
             del cache
     print(f"{arch.name} decode_step at batch 4 (one padded tile, its cache rows copied out and back) vs 8: "
-          f"wall {wall[4]} vs {wall[8]} ms, device {dev[4]} vs {dev[8]} ms")
+          f"wall {wall[4]} vs {wall[8]} ms")
 
 
 def fleet_run(arch, params, transport, limits, prompts, kernels, churn: bool):
@@ -1565,14 +1593,14 @@ def grad_pack_full(grads) -> dict:
     t_kernel = cuda_ms(lambda: gp.quantize_pack(gt, et, plan.seg_dev, n_leaves, body), iters=20, warmup=3)
     t_plain = cuda_ms(lambda: gp.quantize_pack_plain(gt, et, plan.seg_dev, n_leaves, body), iters=5, warmup=1)
     t_kernel2 = cuda_ms(lambda: gp.quantize_pack(gt, et, plan.seg_dev, n_leaves, body), iters=20, warmup=3)
-    t_device = device_ms(lambda: gp.quantize_pack(gt, et, plan.seg_dev, n_leaves, body), iters=10)
-    del gt, et
-    torch.cuda.empty_cache()
-    t_whole = cuda_ms(lambda: gp.pack_grads_fused(g, ef_k), iters=3, warmup=1)
     n = plan.n_tiles * gp.TILE
     peak_flops, peak_bytes = peaks()
     t_bytes, t_ops = GRAD_PACK_BYTES * n / peak_bytes, GRAD_PACK_OPS * n / peak_flops["float32"]
     bound, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    t_device = device_ms(lambda: gp.quantize_pack(gt, et, plan.seg_dev, n_leaves, body), iters=10, bound_ms=bound)
+    del gt, et
+    torch.cuda.empty_cache()
+    t_whole = cuda_ms(lambda: gp.pack_grads_fused(g, ef_k), iters=3, warmup=1)
     print(f"grad_pack {TRAIN_ARCH} gradient tree ({n_leaves} leaves, {sum(s.nelems for s in plan.specs)} elements, "
           f"{n} padded, largest leaf {max(s.nelems for s in plan.specs)}): kernel={t_kernel} ms (again {t_kernel2} ms) "
           f"device={t_device} ms "
@@ -2327,6 +2355,73 @@ def des_path(kernels, payloads) -> dict:
     return launches
 
 
+# Phase 6's device times come from a process of their own (device_times):
+# in the smoke's own process, after the earlier phases, every profiler
+# session of the flash kernel at SLICE_CASE recorded 14 (and, with the
+# profiler's warm-up step, 17) of its 20 launches, six sessions in a row,
+# where a fresh process records all 20 (PERF.md).
+DEVICE_TIMES_ARG = "--device-times"
+DEVICE_TIMES_TIMEOUT_S = 600
+
+
+def flash_timed():
+    return [SLICE_CASE, DEEPSEEK_CASES[0], TRAIN_FLASH_CASE, WHISPER_ENC_CASE, INTERNVL2_CASE, LLAMA4_CHUNK_CASE]
+
+
+def gmm_timed():
+    return [GMM_PREFILL_UP, GMM_PREFILL_DOWN, GMM_DECODE, LLAMA4_GMM_UP, LLAMA4_GMM_DOWN, LLAMA4_GMM_DECODE]
+
+
+def device_times() -> dict:
+    """Phase 6: the profiler's device time a call (:func:`device_ms`) of
+    the kernel and of its library call at every timed case, from a fresh
+    process of this script (DEVICE_TIMES_ARG) on inputs drawn from seed 0;
+    returns {repr(case): {"kernel": ms[, "library": ms]}}."""
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), DEVICE_TIMES_ARG], capture_output=True,
+                       text=True, timeout=DEVICE_TIMES_TIMEOUT_S, cwd=str(ROOT))
+    lines = r.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"phase 6 timing process: {line}")
+    if r.returncode or not lines:
+        fail(f"phase 6: the device-time process exited {r.returncode}: {r.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def device_times_main() -> int:
+    """The process of :func:`device_times`: prints the readings as one JSON
+    line."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import grouped_matmul
+    from repro_torch.kernels.ssd_scan import ssd_chunk_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build(["flash_attention", "ssd_scan", "moe_gmm"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for case in flash_timed():
+        kw = dict(zip(("causal", "window", "chunk"), case[5:8]))
+        q, k, v = attention_inputs(case, gen)
+        bound = attention_bound_ms(case)[0]
+        out[repr(case)] = {"kernel": device_ms(lambda: flash_attention(q, k, v, **kw), bound_ms=bound),
+                           "library": device_ms(sdpa_yardstick(case, q, k, v), bound_ms=bound)}
+        del q, k, v
+    for case in (SSD_MAMBA2, SSD_ZAMBA2):
+        a, x, b, c = ssd_inputs(case, gen)
+        out[repr(case)] = {"kernel": device_ms(lambda: ssd_chunk_kernel(a, x, b, c), bound_ms=ssd_bound_ms(case)[0])}
+    for case in gmm_timed():
+        x, w = gmm_inputs(case, gen)
+        bound = gmm_bound_ms(case)[0]
+        out[repr(case)] = {"kernel": device_ms(lambda: grouped_matmul(x, w), bound_ms=bound),
+                           "library": device_ms(lambda: torch.bmm(x, w), bound_ms=bound)}
+        del x, w
+    print(json.dumps(out))
+    return 0
+
+
 # Phase 9: the port's sharding on the card.  (a) tinyllama's train step
 # with its state and batch placed as DTensors on a 1×1 ("data", "model")
 # mesh over a one-rank NCCL group: the same local ops as the unsharded step
@@ -2334,10 +2429,10 @@ def des_path(kernels, payloads) -> dict:
 # a one-rank gloo mesh matched bit for bit), so the gate is bit for bit,
 # loss and every state leaf; then the seq_act forward of qwen2 and minicpm3
 # (first SEQ_ACT_LAYERS layers, full width, f32) against the default one.
-# (b) the dry-run (host work, in subprocesses beside (a)): the dense
-# floor's cells and one decode cell of every other family on both
-# production meshes, and the one-card view; (c) the meta prediction against
-# the card: bytes exactly, the matrix products no kernel replaces exactly.
+# (b) the dry-run (host work, in subprocesses beside (a)): every cell of
+# every model on both production meshes and on the one-card view (1×1);
+# (c) the meta prediction against the card: bytes exactly, the matrix
+# products no kernel replaces exactly.
 SHARD_STEPS = 2
 SEQ_ACT_ARCHS = ("qwen2-7b", "minicpm3-4b")
 SEQ_ACT_LAYERS = 2
@@ -2345,11 +2440,23 @@ SEQ_ACT_B, SEQ_ACT_S = 1, 1024
 # the reference test's 2e-4 (tests/test_integration.py), made relative to
 # max |logit| for full width
 SEQ_ACT_REL_TOL = 2e-4
-DRYRUN_DENSE = ("tinyllama-1.1b", "qwen2-7b", "h2o-danube-3-4b")
-DRYRUN_OTHERS = ("mamba2-130m", "zamba2-1.2b", "deepseek-moe-16b", "minicpm3-4b", "whisper-large-v3",
-                 "internvl2-76b", "llama4-scout-17b-a16e")
 DRYRUN_TIMEOUT_S = 540
 SERVE_SLOTS, SERVE_CONTEXT, SERVE_PROMPT = 8, 2048, 1024  # phase 4's server: 8 slots of 2048, prompts up to 1024
+# Phase 9(a), the other families on the same 1×1 mesh: the sharded train
+# step of each SHARDED_TRAINS model at its phase-5b width, layers, B, S and
+# remat (the default grad sync), SHARD_STEPS steps, against the same steps
+# unsharded, kept on the host so that two states never sit on the card
+# together (deepseek's 4 layers take ~28 GB of state and peak at ~45 GiB);
+# then a prefill of SERVE_SLOTS prompts of SERVE_PROMPT tokens and
+# SHARD_DECODE_STEPS greedy decode steps (one decode tile) of each
+# SHARDED_SERVES model under the serving rules (seq_kv on "model", the
+# cache placed by cache_specs), against the same unsharded.  Every gate is
+# bit for bit, launches included.
+SHARDED_TRAINS = ("mamba2-130m", "zamba2-1.2b", "deepseek-moe-16b")
+SHARDED_SERVES = (("deepseek-moe-16b", 4, dict(NO_LAUNCH, flash_attention=4, grouped_matmul=12),
+                   dict(NO_LAUNCH, grouped_matmul=12)),
+                  ("zamba2-1.2b", None, dict(NO_LAUNCH, flash_attention=7, ssd_chunk_kernel=38), NO_LAUNCH))
+SHARD_DECODE_STEPS = 3
 
 
 def _tree_bytes(tree) -> int:
@@ -2378,7 +2485,9 @@ def sharded_train(kernels) -> tuple:
     ones, and at least once a layer a step.  Then the seq_act forwards.
     Every count is set to 0 just before the sharded steps and read just
     after them; the unsharded steps, run to compare, are counted apart.
-    Returns (the sharded steps' launches, the unsharded step's readings for
+    Then the other families' sharded steps and serving
+    (:func:`sharded_family_train`, :func:`sharded_serve`).  Returns (the
+    sharded runs' launches by path, the unsharded step's readings for
     9(c))."""
     import tempfile
 
@@ -2455,10 +2564,16 @@ def sharded_train(kernels) -> tuple:
                 fail(f"phase 9(a): kernels other than flash launched on the dense train: {launches}")
             del state, plain, placed
             torch.cuda.empty_cache()
+            paths = {f"{TRAIN_ARCH} sharded train": launches}
+            for ft in FAMILY_TRAINS:
+                if ft.name in SHARDED_TRAINS:
+                    paths[f"{ft.name} sharded train"] = sharded_family_train(kernels, mesh, ft)
+            for name, layers, per_prefill, per_step in SHARDED_SERVES:
+                paths[f"{name} sharded serve"] = sharded_serve(kernels, mesh, name, layers, per_prefill, per_step)
             seq_act_forward(mesh)
         finally:
             dist.destroy_process_group()
-    return launches, readings
+    return paths, readings
 
 
 def seq_act_forward(mesh) -> None:
@@ -2498,6 +2613,139 @@ def seq_act_forward(mesh) -> None:
         torch.cuda.empty_cache()
 
 
+def _as_local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def sharded_family_train(kernels, mesh, ft) -> dict:
+    """Phase 9(a): ``ft``'s model (a FamilyTrain) SHARD_STEPS steps
+    unsharded, its final state copied to the host, then the same steps with
+    the state and batch placed on ``mesh`` under ``make_rules``.  Gates:
+    losses and every state leaf bit for bit, every kernel launching as
+    often sharded as unsharded and ``ft.per_step`` times a step.  Every
+    count is set to 0 just before each run and read just after it; returns
+    the sharded run's."""
+    import torch
+
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_rules
+    from repro_torch.optim import OptHParams
+    from repro_torch.sharding import PartitionSpec, use_rules
+    from repro_torch.sharding.params import batch_specs, distribute_tree, opt_specs, param_specs
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    arch = get_config(ft.name)
+    if ft.layers is not None:
+        arch = arch.variant(n_layers=ft.layers)
+    tcfg = TrainConfig(microbatches=1, remat=ft.remat)
+    step_fn = make_train_step(arch, OptHParams(lr_peak=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL), tcfg)
+    batch = train_batch(arch, 0, ft.seq)
+
+    def steps(state, batch):
+        for fn in kernels.values():
+            fn.launches = 0
+        losses, t0 = [], time.monotonic()
+        for _ in range(SHARD_STEPS):
+            state, met = step_fn(state, batch)
+            losses.append(_as_local(met["loss"]).clone())
+        torch.cuda.synchronize()
+        return state, losses, {k: fn.launches for k, fn in kernels.items()}, time.monotonic() - t0
+
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0), arch, tcfg)
+    state, plain_losses, plain_launches, plain_wall = steps(state, batch)
+    host = {k: t.cpu() for k, t in _flatten(state)}
+    del state
+    torch.cuda.empty_cache()
+    rules = make_rules(mesh)
+    with use_rules(rules):
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(0), arch, tcfg)
+        spec = {"params": param_specs(state["params"], rules),
+                "opt": opt_specs(state["opt"], state["params"], rules, zero=True, mesh=mesh), "step": PartitionSpec()}
+        state = distribute_tree(state, mesh, spec)
+        placed = distribute_tree(batch, mesh, batch_specs(batch, rules))
+        state, losses, launches, wall = steps(state, placed)
+    differ = [k for k, t in _flatten(state) if not torch.equal(_as_local(t).cpu(), host[k])]
+    kinds = {type(t).__name__ for _, t in _flatten(state)}
+    same_loss = all(torch.equal(a, b) for a, b in zip(losses, plain_losses))
+    want = {k: n * SHARD_STEPS for k, n in ft.per_step.items()}
+    print(f"phase 9(a) {ft.name} sharded train on a 1x1 mesh (NCCL, world 1), {arch.n_layers} layers B={TRAIN_B} "
+          f"S={ft.seq} remat={ft.remat}, {SHARD_STEPS} steps: losses {[float(x) for x in losses]} vs unsharded "
+          f"{[float(x) for x in plain_losses]}, bit for bit: {same_loss}; state leaves {kinds}, {len(differ)} of "
+          f"{len(host)} differing from the unsharded steps' {differ[:5]}; launches sharded {launches} unsharded "
+          f"{plain_launches}; walls sharded {wall} s unsharded {plain_wall} s")
+    if not same_loss or differ or kinds != {"DTensor"}:
+        fail(f"phase 9(a): {ft.name}'s sharded step is not the unsharded step bit for bit "
+             f"(loss {same_loss}, leaves {differ[:5]}, {kinds})")
+    if launches != plain_launches or launches != want:
+        fail(f"phase 9(a): {ft.name} launched {launches} sharded, {plain_launches} unsharded, want {want}")
+    del state, placed, host
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_serve(kernels, mesh, name, layers, per_prefill, per_step) -> dict:
+    """Phase 9(a): ``name`` (its first ``layers`` layers, or all) at full
+    width, bf16, seed 0: a prefill of SERVE_SLOTS random prompts of
+    SERVE_PROMPT tokens and SHARD_DECODE_STEPS greedy decode steps, once
+    unsharded and once with the weights, prompts and cache (SERVE_CONTEXT
+    slots) placed on ``mesh`` under the serving rules.  Gates: every
+    logit bit for bit, the greedy tokens equal, and the kernels launching
+    ``per_prefill`` times a prefill and ``per_step`` times a step in both
+    runs.  Counts as in :func:`sharded_family_train`; returns the sharded
+    run's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_rules
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.sharding import use_rules
+    from repro_torch.sharding.params import batch_specs, cache_specs, distribute_tree, param_specs
+
+    arch = get_config(name)
+    if layers is not None:
+        arch = arch.variant(n_layers=layers)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), arch)
+    toks = torch.randint(0, arch.vocab_size, (SERVE_SLOTS, SERVE_PROMPT), generator=torch.Generator().manual_seed(3))
+    prompt = {"tokens": toks.cuda()}
+
+    def serve(params, prompt, cache, place):
+        for fn in kernels.values():
+            fn.launches = 0
+        logits, cache = prefill(params, arch, prompt, cache)
+        out, t0 = [_as_local(logits).clone()], time.monotonic()
+        for i in range(SHARD_DECODE_STEPS):
+            tok = out[-1][:, -1].argmax(-1)
+            step_in = place({"tokens": tok[:, None], "positions": torch.full_like(tok, SERVE_PROMPT + i)})
+            logits, cache = decode_step(params, arch, step_in["tokens"], step_in["positions"], cache)
+            out.append(_as_local(logits).clone())
+        torch.cuda.synchronize()
+        return out, {k: fn.launches for k, fn in kernels.items()}, time.monotonic() - t0
+
+    with torch.no_grad():
+        ref, plain_launches, plain_wall = serve(params, prompt, init_cache(arch, SERVE_SLOTS, SERVE_CONTEXT, "cuda"),
+                                                lambda b: b)
+        rules = make_rules(mesh, overrides={"seq_kv": "model"})
+        with use_rules(rules):
+            place = lambda b: distribute_tree(b, mesh, batch_specs(b, rules))  # noqa: E731
+            cache = init_cache(arch, SERVE_SLOTS, SERVE_CONTEXT, "cuda")
+            got, launches, wall = serve(distribute_tree(params, mesh, param_specs(params, rules)), place(prompt),
+                                        distribute_tree(cache, mesh, cache_specs(cache, rules)), place)
+    same = [bool(torch.equal(a, b)) for a, b in zip(got, ref)]
+    want = {k: per_prefill[k] + SHARD_DECODE_STEPS * per_step[k] for k in per_prefill}
+    print(f"phase 9(a) {name} sharded serve on a 1x1 mesh, {arch.n_layers} layers, seq_kv on model: prefill of "
+          f"{SERVE_SLOTS} x {SERVE_PROMPT} tokens and {SHARD_DECODE_STEPS} decode steps: logits bit for bit {same} "
+          f"(max |logit| {float(ref[0].float().abs().max())}); launches sharded {launches} unsharded "
+          f"{plain_launches}; decode walls sharded {wall} s unsharded {plain_wall} s")
+    if not all(same):
+        fail(f"phase 9(a): {name}'s sharded prefill/decode logits differ from the unsharded ones: {same}")
+    if launches != plain_launches or launches != want:
+        fail(f"phase 9(a): {name} served launches {launches} sharded, {plain_launches} unsharded, want {want}")
+    del params, cache, got, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _mm_flops(counted) -> float:
     """The FLOPs of the matrix products with no batch (projections, MLP, LM
     head: ``mm``, ``addmm``, an einsum's ``bmm`` of one); attention's
@@ -2512,13 +2760,11 @@ def dryrun_start(tmp) -> list:
     global bytes)."""
     import os
 
-    cells = [f"{a}:{s}" for a in DRYRUN_DENSE for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
-    cells += [f"{a}:decode_32k" for a in DRYRUN_OTHERS]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")  # host work: off the card
     runs = []
     for name, extra in (("16x16", []), ("2x16x16", ["--multi-pod"]), ("1x1", ["--mesh", "1x1"])):
         out = Path(tmp) / name
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells", ",".join(cells), "--out", str(out), *extra]
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--out", str(out), *extra]
         runs.append((name, out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                                                  env=env, cwd=str(ROOT))))
     return runs
@@ -2526,8 +2772,9 @@ def dryrun_start(tmp) -> list:
 
 def dryrun_finish(runs, total_memory: int, smi: str) -> dict:
     """Phase 9(b): waits for the dry-runs, prints a line a cell and gates:
-    every applicable cell of the dense floor ``ok`` on both production
-    meshes, every other cell ``ok`` or an ``error`` that names its op."""
+    every applicable cell of every model ``ok`` on both production meshes
+    and the 1×1 one, every other cell ``skipped`` (``long_500k`` on the
+    full-attention models)."""
     from repro_torch.roofline import HW, analyze_cell
 
     hw = HW()
@@ -2556,18 +2803,22 @@ def dryrun_finish(runs, total_memory: int, smi: str) -> dict:
                   f"compute={c.compute_s} s memory={c.memory_s} s collective={c.collective_s} s dominant={c.dominant}")
         else:
             print(f"  {name} {tag}: {rec['status']} {rec.get('op')} {rec.get('error', rec.get('reason', ''))[:200]}")
-    from repro_torch.configs import SHAPES, cell_is_applicable, get_config
+    from repro_torch.configs import SHAPES, cell_is_applicable, get_config, list_archs
 
-    for mesh in ("16x16", "2x16x16"):
-        for a in DRYRUN_DENSE:
+    tags = {"16x16": "pod1", "2x16x16": "pod2", "1x1": "1x1"}
+    bad, counts = [], {"ok": 0, "skipped": 0, "error": 0}
+    for mesh, tag in tags.items():
+        for a in list_archs():
             for s in SHAPES:
-                rec = recs.get((mesh, f"{a}__{s}__{'pod2' if mesh == '2x16x16' else 'pod1'}"))
-                applicable = cell_is_applicable(get_config(a), SHAPES[s])[0]
-                if applicable and (rec is None or rec["status"] != "ok"):
-                    fail(f"phase 9(b): dense cell {a} x {s} on {mesh}: {rec and rec.get('error')}")
-    bad = [k for k, r in recs.items() if r["status"] == "error" and not r.get("op")]
+                rec = recs.get((mesh, f"{a}__{s}__{tag}"))
+                status = rec["status"] if rec else "missing"
+                counts[status] = counts.get(status, 0) + 1
+                want = "ok" if cell_is_applicable(get_config(a), SHAPES[s])[0] else "skipped"
+                if status != want:
+                    bad.append(f"{a} x {s} on {mesh}: {status} {rec and rec.get('op')} {rec and rec.get('error', '')[:160]}")
+    print(f"phase 9(b) the dry-run's cells over {', '.join(tags)}: {counts}")
     if bad:
-        fail(f"phase 9(b): cells failed without naming an op: {bad}")
+        fail(f"phase 9(b): {len(bad)} cells not as the assignment rule says (every applicable cell ok): {bad[:8]}")
     return recs
 
 
@@ -2728,7 +2979,8 @@ def main() -> int:
         fail(f"the main paths handed the grouped matmul {grouped_matmul.copies} operands to copy contiguous")
 
     # 6. times at the main paths' shapes -------------------------------------
-    flash_ms = {SLICE_CASE: time_attention(flash_attention, attention_plain, SLICE_CASE, gen)}
+    dev = device_times()
+    flash_ms = {SLICE_CASE: time_attention(flash_attention, attention_plain, SLICE_CASE, gen, dev[repr(SLICE_CASE)])}
     ssd_ms = {}
     for case in (SSD_MAMBA2, SSD_ZAMBA2):
         a, x, b, c = ssd_inputs(case, gen)
@@ -2736,10 +2988,10 @@ def main() -> int:
         t_plain = cuda_ms(lambda: ssd_chunk_plain(a, x, b, c))
         t_lib = cuda_ms(ssd_yardstick(a, x, b, c))
         t_kernel2 = cuda_ms(lambda: ssd_chunk_kernel(a, x, b, c))
-        d_kernel = device_ms(lambda: ssd_chunk_kernel(a, x, b, c))
+        sbound, sbound_by = ssd_bound_ms(case)
+        d_kernel = dev[repr(case)]["kernel"]
         with torch.inference_mode():  # the host cost of the serving route: the wrapper, and SSDChunkFn around it
             h_kernel, h_fn = host_us(lambda: ssd_chunk_kernel(a, x, b, c)), host_us(lambda: SSDChunkFn.apply(a, x, b, c))
-        sbound, sbound_by = ssd_bound_ms(case)
         ssd_ms[case] = (t_kernel, t_plain, t_lib, sbound, sbound_by, d_kernel, ssd_chunk_kernel.heads_per_block,
                         h_kernel, h_fn)
         print(f"ssd_chunk_kernel {case}: kernel={t_kernel} ms (again {t_kernel2} ms) device={d_kernel} ms "
@@ -2748,21 +3000,23 @@ def main() -> int:
               f"host a call under inference_mode: wrapper {h_kernel} us, SSDChunkFn {h_fn} us")
 
     # deepseek's attention (D=128) at S=1024, then the train step's
-    flash_ms[DEEPSEEK_CASES[0]] = time_attention(flash_attention, attention_plain, DEEPSEEK_CASES[0], gen_moe)
-    flash_ms[TRAIN_FLASH_CASE] = time_attention(flash_attention, attention_plain, TRAIN_FLASH_CASE, gen)
+    flash_ms[DEEPSEEK_CASES[0]] = time_attention(flash_attention, attention_plain, DEEPSEEK_CASES[0], gen_moe,
+                                                 dev[repr(DEEPSEEK_CASES[0])])
+    flash_ms[TRAIN_FLASH_CASE] = time_attention(flash_attention, attention_plain, TRAIN_FLASH_CASE, gen,
+                                                dev[repr(TRAIN_FLASH_CASE)])
     for case in (WHISPER_ENC_CASE, INTERNVL2_CASE, LLAMA4_CHUNK_CASE):  # the later families'
-        flash_ms[case] = time_attention(flash_attention, attention_plain_blocked, case, gen_fam)
+        flash_ms[case] = time_attention(flash_attention, attention_plain_blocked, case, gen_fam, dev[repr(case)])
     gmm_ms = {}
-    for case in (GMM_PREFILL_UP, GMM_PREFILL_DOWN, GMM_DECODE, LLAMA4_GMM_UP, LLAMA4_GMM_DOWN, LLAMA4_GMM_DECODE):
+    for case in gmm_timed():
         x, w = gmm_inputs(case, gen_moe if case[0] == 64 else gen_fam)
         t_kernel = cuda_ms(lambda: grouped_matmul(x, w))
         t_plain = cuda_ms(lambda: grouped_matmul_plain(x, w))
         t_lib = cuda_ms(lambda: torch.bmm(x, w))
         t_kernel2 = cuda_ms(lambda: grouped_matmul(x, w))
-        d_kernel, d_lib = device_ms(lambda: grouped_matmul(x, w)), device_ms(lambda: torch.bmm(x, w))
+        gbound, gbound_by = gmm_bound_ms(case)
+        d_kernel, d_lib = dev[repr(case)]["kernel"], dev[repr(case)]["library"]
         with torch.inference_mode():  # the wrapper, and GroupedMatmulFn around it (84 a deepseek decode step)
             h_kernel, h_fn = host_us(lambda: grouped_matmul(x, w)), host_us(lambda: GroupedMatmulFn.apply(x, w))
-        gbound, gbound_by = gmm_bound_ms(case)
         gmm_ms[case] = (t_kernel, t_plain, t_lib, gbound, gbound_by, d_kernel, d_lib, h_kernel, h_fn)
         print(f"grouped_matmul {case}: kernel={t_kernel} ms (again {t_kernel2} ms) device={d_kernel} ms "
               f"plain={t_plain} ms torch.bmm={t_lib} ms (device {d_lib} ms) bound={gbound} ms ({gbound_by}); "
@@ -2787,10 +3041,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as dry_tmp:
         t0 = time.monotonic()
         runs = dryrun_start(dry_tmp)
-        by_path[f"{TRAIN_ARCH} sharded train"], readings = sharded_train(kernels)
-        t_a = time.monotonic() - t0
-        dryrun_finish(runs, torch.cuda.get_device_properties(0).total_memory, smi)
-        t_b = time.monotonic() - t0
+        try:
+            paths, readings = sharded_train(kernels)
+            by_path.update(paths)
+            t_a = time.monotonic() - t0
+            dryrun_finish(runs, torch.cuda.get_device_properties(0).total_memory, smi)
+            t_b = time.monotonic() - t0
+        finally:  # a failed gate leaves no dry-run running
+            for _, _, proc in runs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
     meta_prediction(readings)
     print(f"phase 9: {time.monotonic() - t0} s (9(a) {t_a} s; the dry-runs done {t_b} s after the start)")
 
@@ -2878,4 +3139,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(device_times_main() if sys.argv[1:] == [DEVICE_TIMES_ARG] else main())

@@ -46,7 +46,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
-from ..sharding.logical import contiguous_grads, current_rules, is_dtensor, shard
+from ..sharding.logical import contiguous_grads, current_rules, is_dtensor, local_einsum, shard
 from .layers import Params, apply_rope, dense_init
 
 __all__ = [
@@ -149,8 +149,8 @@ def _attention_core(
     """Scaled-dot-product GQA over full K/V (qpos and kpos both
     ``arange``).  Under rules that map ``seq_act`` to a mesh axis, the
     reference's sequence-parallel einsums (:func:`_attention_seq_act`,
-    never the kernel).  Self-attention of DTensors, and any attention of
-    DTensors under ``seq_act``, runs on each rank's shards
+    never the kernel).  Any attention of DTensors (self- and
+    cross-attention, under ``seq_act`` or not) runs on each rank's shards
     (:func:`_attention_local`); self-attention of plain CUDA tensors the
     flash-attention kernel (through :class:`FlashAttentionFn` when
     ``grad``, the train path); everything else
@@ -158,7 +158,7 @@ def _attention_core(
     if kind not in KINDS:
         raise ValueError(f"unknown attention kind {kind!r}")
     seq_act = _seq_act()
-    if is_dtensor(q) and (seq_act or q.shape[1] == k.shape[1]):
+    if is_dtensor(q):
         return _attention_local(q, k, v, kind, window, grad, seq_act)
     if seq_act:
         return _attention_seq_act(q, k, v, qpos, kpos, kind, window)
@@ -248,14 +248,14 @@ def _attention_local(q, k, v, kind: str, window: int, grad: bool, seq_act: bool 
             idx = pick if isinstance(pick, slice) else torch.tensor(pick, device=kl_.device)
             kl_, vl = kl_[:, :, idx].contiguous(), vl[:, :, idx].contiguous()
         kpos = torch.arange(kl_.shape[1], dtype=torch.int32, device=kl_.device)
+        qpos = torch.arange(s0, s0 + ql.shape[1], dtype=torch.int32, device=ql.device)
         if seq_act:
-            qpos = torch.arange(s0, s0 + ql.shape[1], dtype=torch.int32, device=ql.device)
             return _attention_seq_act(ql, kl_, vl, qpos, kpos, kind, window)
         if _kernel_route(ql, kl_):
             if grad:
                 return FlashAttentionFn.apply(ql, kl_, vl, kind, window)
             return kops.attention(ql, kl_, vl, **_kernel_kw(kind, window))
-        return _attention_core_plain(ql, kl_, vl, kpos, kpos, kind, window)
+        return _attention_core_plain(ql, kl_, vl, qpos, kpos, kind, window)
 
     # a kv shard replicated across query shards (heads, or the sequence
     # under seq_act) gets one partial gradient from each of them
@@ -401,10 +401,38 @@ def _cache_write_prefill(cache: Params, k: torch.Tensor, v: torch.Tensor, kpos: 
         cache["v"].copy_(vtail)
         cache["pos"].copy_(ptail[None].expand_as(cache["pos"]))
         return cache
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
-    cache["pos"][:, :s] = kpos[None]
+    _write_prefix(cache["k"], k)
+    _write_prefix(cache["v"], v)
+    _write_prefix(cache["pos"], kpos[None])
     return cache
+
+
+def _write_prefix(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst[:, :s] = src`` in place, s = ``src.shape[1]`` (``src`` may
+    broadcast over the batch).  A DTensor cache is written on each rank's
+    shards (``local_map``): the rank holding slots [o, o + n) of a cache
+    sharded over its slot dim writes the prompt's tokens that fall there,
+    from ``src`` gathered over the sequence and placed as ``dst`` on every
+    other dim.  (A slice of a DTensor sharded over the sliced dim is a new
+    tensor, not a view, so assigning into it would write nothing.)"""
+    if not is_dtensor(dst):
+        dst[:, : src.shape[1]] = src
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, d_pl, s = dst.device_mesh, tuple(dst.placements), src.shape[1]
+    s_pl = tuple(Replicate() if pl == Shard(1) or src.shape[0] == 1 else pl for pl in d_pl)
+    (_, n, *_), (_, o, *_) = compute_local_shape_and_global_offset(dst.shape, mesh, d_pl)
+
+    def body(dl: torch.Tensor, sl: torch.Tensor) -> torch.Tensor:
+        if min(o + n, s) > o:
+            dl[:, : min(o + n, s) - o] = sl[:, o : min(o + n, s)]
+        return dl
+
+    local_map(body, out_placements=list(d_pl), in_placements=(d_pl, s_pl), device_mesh=mesh,
+              redistribute_inputs=True)(dst, src)
 
 
 def attention_prefill(
@@ -497,8 +525,8 @@ def attention_decode(
     visible = (cpos >= 0) & (cpos <= qp)
     if kind == "swa":
         visible &= cpos > qp - window
-    elif kind == "chunked":
-        visible &= (cpos // window) == (qp // window)
+    elif kind == "chunked":  # div, not //: DTensor has no floor_divide strategy on every release
+        visible &= cpos.div(window, rounding_mode="floor") == qp.div(window, rounding_mode="floor")
     qg = _group_heads(q, ck)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg, ck).float()
     scores = scores / math.sqrt(hd)
@@ -566,16 +594,18 @@ def _mla_attend(p: Params, q_nope, q_rope, c_kv, k_rope, mask, cfg: ArchConfig) 
     ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_kv)
     out = torch.einsum("bshr,rhe->bshe", ctx_lat, p["wv_b"])  # (B,Sq,H,dv)
     out = shard(out, "batch", "seq_act", "heads", "head_dim")
-    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return local_einsum("bshe,hed->bsd", out, p["wo"])  # on DTensors a partial sum over the head shards
 
 
 def _mla_attend_reconstructed(p: Params, q_nope, q_rope, c_kv, k_rope, mask, cfg: ArchConfig) -> torch.Tensor:
     """Full-sequence MLA (prefill and train) through per-head K/V
     reconstructed from the latent; materialises (B, H, S, S) f32 scores.
-    DTensors under ``seq_act`` run it on each rank's block of queries
-    (:func:`_mla_attend_local`)."""
-    if is_dtensor(q_nope) and _seq_act():
-        return _mla_attend_local(p, q_nope, q_rope, c_kv, k_rope, cfg)
+    DTensors run it on each rank's shards (:func:`_mla_attend_local`) and
+    hand the output back placed as the residual stream (the train path's
+    backward would otherwise carry a gradient sharded over batch and
+    sequence into the next projection's ``view``, which merges the two)."""
+    if is_dtensor(q_nope):
+        return shard(_mla_attend_local(p, q_nope, q_rope, c_kv, k_rope, cfg), "batch", "seq", "embed")
     k_nope = torch.einsum("btr,rhe->bthe", c_kv, p["wk_b"])  # (B,T,H,dn)
     v = torch.einsum("btr,rhe->bthe", c_kv, p["wv_b"])  # (B,T,H,dv)
     q_nope, q_rope = _shard_q(q_nope, q_rope)
@@ -588,26 +618,30 @@ def _mla_attend_reconstructed(p: Params, q_nope, q_rope, c_kv, k_rope, mask, cfg
 
 
 def _mla_attend_local(p: Params, q_nope, q_rope, c_kv, k_rope, cfg: ArchConfig) -> torch.Tensor:
-    """:func:`_mla_attend_reconstructed` of DTensors under ``seq_act`` on
-    each rank's shards (``local_map``): the queries sharded over batch and
-    sequence as the rules say, the latent and shared key over the batch
-    only, the weights whole; each rank attends its block of queries to
-    every key (causal by absolute position) and projects it.  The output
-    (B, S, D) keeps the queries' sharding.  (DTensor's own einsums here
-    merge two sharded dims into one, whose placement DTensor plans by a
-    search too slow for a 3-D mesh.)"""
+    """:func:`_mla_attend_reconstructed` of DTensors on each rank's shards
+    (``local_map``): the queries sharded over batch and, as the rules say,
+    the sequence (``seq_act``) or the heads, the latent and shared key
+    over the batch only, the per-head weights over the queries' heads;
+    each rank attends its block of queries to every key (causal by
+    absolute position) and projects it.  The output (B, S, D) keeps the
+    queries' batch and sequence sharding and is a partial sum over their
+    head shards.  (DTensor's own einsums here merge two sharded dims into
+    one, which some releases refuse and others plan by a search too slow
+    for a 3-D mesh.)"""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
     from torch.distributed.tensor.experimental import local_map
 
     q_nope, q_rope = _shard_q(q_nope, q_rope)
     mesh = q_nope.device_mesh
-    q_pl = tuple(pl if isinstance(pl, Shard) and pl.dim in (0, 1) else Replicate() for pl in q_nope.placements)
+    q_pl = tuple(pl if isinstance(pl, Shard) and pl.dim in (0, 1, 2) else Replicate() for pl in q_nope.placements)
     kv_pl = tuple(Shard(0) if pl == Shard(0) else Replicate() for pl in q_pl)
-    w_pl = (Replicate(),) * mesh.ndim
+    heads = lambda d: tuple(Shard(d) if pl == Shard(2) else Replicate() for pl in q_pl)  # noqa: E731
+    w_pl = (heads(1), heads(1), heads(0))  # wk_b, wv_b (r, H, ·); wo (H, dv, D)
+    out_pl = [Partial() if pl == Shard(2) else pl for pl in q_pl]
     # replicated inputs read by several query shards get one partial gradient from each
-    kv_grad = tuple(Partial() if pl == Shard(1) else kp for pl, kp in zip(q_pl, kv_pl))
-    w_grad = tuple(Partial() if isinstance(pl, Shard) else Replicate() for pl in q_pl)
+    kv_grad = tuple(Partial() if pl in (Shard(1), Shard(2)) else kp for pl, kp in zip(q_pl, kv_pl))
+    w_grad = tuple(tuple(Partial() if pl in (Shard(0), Shard(1)) else wp for pl, wp in zip(q_pl, w)) for w in w_pl)
     s0 = compute_local_shape_and_global_offset(q_nope.shape, mesh, q_pl)[1][1]
 
     def body(qn, qr, ck, kr, wk, wv, wo):
@@ -617,8 +651,8 @@ def _mla_attend_local(p: Params, q_nope, q_rope, c_kv, k_rope, cfg: ArchConfig) 
         mask = (qpos[:, None] >= kpos[None, :])[None, None]
         return _mla_attend_reconstructed({"wk_b": wk, "wv_b": wv, "wo": wo}, qn, qr, ck, kr, mask, cfg)
 
-    return local_map(body, out_placements=list(q_pl), in_placements=(q_pl, q_pl, kv_pl, kv_pl, w_pl, w_pl, w_pl),
-                     in_grad_placements=(q_pl, q_pl, kv_grad, kv_grad, w_grad, w_grad, w_grad),
+    return local_map(body, out_placements=out_pl, in_placements=(q_pl, q_pl, kv_pl, kv_pl) + w_pl,
+                     in_grad_placements=(q_pl, q_pl, kv_grad, kv_grad) + w_grad,
                      device_mesh=mesh, redistribute_inputs=True)(q_nope, q_rope, c_kv, k_rope, p["wk_b"], p["wv_b"], p["wo"])
 
 
@@ -649,9 +683,9 @@ def mla_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, cache: Params) -> T
     qpos, mask = _causal(s, x.device)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, qpos)
     out = _mla_attend_reconstructed(p, q_nope, q_rope, c_kv, k_rope, mask, cfg)
-    cache["c_kv"][:, :s] = c_kv
-    cache["k_rope"][:, :s] = k_rope
-    cache["pos"][:, :s] = qpos[None]
+    _write_prefix(cache["c_kv"], c_kv)
+    _write_prefix(cache["k_rope"], k_rope)
+    _write_prefix(cache["pos"], qpos[None])
     return out, cache
 
 

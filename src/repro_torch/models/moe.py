@@ -26,6 +26,12 @@ the spare row's gradient is 0 (it is cut off before the experts), so a
 dropped slot's token gets none, as the reference's dropped scatter gives.
 The router's gradient flows through the gates and, into the aux loss,
 through the probabilities.
+
+On DTensors the routing runs as DTensor ops, and the dispatch and
+combine run on each rank's batch rows (``local_map``): each rank fills
+its own (E, B_local, C, D) queues, which are then redistributed to the
+expert sharding, and gathers its rows back from them.  The einsum oracle
+runs unsharded only.
 """
 from __future__ import annotations
 
@@ -120,6 +126,7 @@ def _queue_rows(e_idx: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor, cap:
 
 def _dispatch_scatter(x: torch.Tensor, rows: torch.Tensor, cap: int, e: int) -> torch.Tensor:
     """(B,S,D) tokens → (E,B,C,D) expert queues, one writer per kept row."""
+    contiguous_grads(x)  # as on local shards: the same gradient layouts, so the same sums upstream
     b, s, d = x.shape
     x_rep = shard(x.repeat(1, rows.shape[1] // s, 1), "batch", "moe_tokens", "embed")  # slot-major: (B, kS, D)
     flat = x.new_zeros((e * b * cap + 1, d))  # + the spare row of dropped slots
@@ -129,11 +136,59 @@ def _dispatch_scatter(x: torch.Tensor, rows: torch.Tensor, cap: int, e: int) -> 
 
 def _combine_gather(expert_out: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor, gates: torch.Tensor, s: int) -> torch.Tensor:
     """(E,B,C,D) expert outputs → (B,S,D) via gather + gated sum over k."""
+    contiguous_grads(expert_out, gates)
     e, b, cap, d = expert_out.shape
     hit = expert_out.reshape(e * b * cap, d)[torch.where(keep, rows, 0)]  # (B,kS,D)
     hit = shard(hit, "batch", "moe_tokens", "embed")
     hit = torch.where(keep[..., None], hit, 0) * gates[..., None].to(hit.dtype)
     return hit.reshape(b, -1, s, d).sum(dim=1)
+
+
+def _batch_placements(t: torch.Tensor, dim: int) -> Tuple:
+    """Per mesh dim: ``Shard(dim)`` where ``t`` (a DTensor whose dim 0 is
+    the batch) holds its batch sharded, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(Shard(dim) if pl == Shard(0) else Replicate() for pl in t.placements)
+
+
+def _dispatch_local(x: torch.Tensor, e_idx: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor, cap: int,
+                    e: int) -> torch.Tensor:
+    """:func:`_dispatch_scatter` of DTensors on each rank's shards
+    (``local_map``): a rank scatters the slots of its batch rows into its
+    local (E, B_local, C, D) queues, with the rows :func:`_queue_rows`
+    gives its shard (the unsharded rows on a mesh whose batch is whole).
+    Every other dim replicated; the queues come back sharded over their
+    batch dim (1) as x is over its dim 0.  DTensor has no working rule for
+    the indexed write (``index_put_``) on every release."""
+    from torch.distributed.tensor.experimental import local_map
+
+    x_pl, q_pl = _batch_placements(x, 0), _batch_placements(x, 1)
+
+    def body(xl, el, pl, kl):
+        return _dispatch_scatter(xl, _queue_rows(el, pl, kl, cap, e), cap, e)
+
+    return local_map(body, out_placements=list(q_pl), in_placements=(x_pl,) * 4, in_grad_placements=(x_pl,) * 4,
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(x, e_idx, pos, keep)
+
+
+def _combine_local(expert_out: torch.Tensor, e_idx: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor,
+                   gates: torch.Tensor, s: int) -> torch.Tensor:
+    """:func:`_combine_gather` of DTensors on each rank's shards: the
+    queues gathered over the experts and kept sharded over the batch as
+    the slots are (the dispatch's layout), each rank gathers its rows'
+    slots back; the output (B,S,D) sharded as the slots' batch."""
+    from torch.distributed.tensor.experimental import local_map
+
+    cap, e = expert_out.shape[2], expert_out.shape[0]
+    s_pl, q_pl = _batch_placements(e_idx, 0), _batch_placements(e_idx, 1)
+
+    def body(ql, el, pl, kl, gl):
+        return _combine_gather(ql, _queue_rows(el, pl, kl, cap, e), kl, gl, s)
+
+    return local_map(body, out_placements=list(s_pl), in_placements=(q_pl,) + (s_pl,) * 4,
+                     in_grad_placements=(q_pl,) + (s_pl,) * 4, device_mesh=e_idx.device_mesh,
+                     redistribute_inputs=True)(expert_out, e_idx, pos, keep, gates)
 
 
 class GroupedMatmulFn(torch.autograd.Function):
@@ -165,6 +220,7 @@ def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (``local_map``), the same route per shard."""
     if is_dtensor(x):
         return _expert_matmul_local(x, w)
+    contiguous_grads(x, w)  # as on local shards
     return GroupedMatmulFn.apply(x, w) if x.is_cuda else kops.expert_ffn_matmul(x, w)
 
 
@@ -178,12 +234,8 @@ def _expert_matmul_local(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     x_pl = tuple(pl if isinstance(pl, Shard) and pl.dim in (0, 1) else Replicate() for pl in x.placements)
     w_pl = tuple(Shard(0) if pl == Shard(0) else Replicate() for pl in x_pl)
-    def body(xl: torch.Tensor, wl: torch.Tensor) -> torch.Tensor:
-        contiguous_grads(xl, wl)
-        return _expert_matmul(xl, wl)
-
     w_grad = tuple(Partial() if pl == Shard(1) else wp for pl, wp in zip(x_pl, w_pl))  # one partial a row shard
-    return local_map(body, out_placements=list(x_pl), in_placements=(x_pl, w_pl), in_grad_placements=(x_pl, w_grad),
+    return local_map(_expert_matmul, out_placements=list(x_pl), in_placements=(x_pl, w_pl), in_grad_placements=(x_pl, w_grad),
                      device_mesh=x.device_mesh, redistribute_inputs=True)(x, w)
 
 
@@ -194,7 +246,13 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, dispatch_mode: str = 
     b, s, d = x.shape
     e = cfg.n_experts
     e_idx, pos, keep, gates, cap, aux = _route(p, x, cfg)
-    if dispatch_mode == "scatter":
+    sharded = is_dtensor(x)
+    if sharded and dispatch_mode != "scatter":
+        raise NotImplementedError(f"moe_apply: dispatch_mode {dispatch_mode!r} runs unsharded only; "
+                                  "DTensors take 'scatter'")
+    if sharded:
+        expert_in = _dispatch_local(x, e_idx, pos, keep, cap, e)
+    elif dispatch_mode == "scatter":
         rows = _queue_rows(e_idx, pos, keep, cap, e)
         expert_in = _dispatch_scatter(x, rows, cap, e)
     else:  # einsum oracle (small shapes only)
@@ -209,7 +267,9 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, dispatch_mode: str = 
     else:
         h = F.gelu(_expert_matmul(q, p["w_up"]), approximate="tanh")
     expert_out = shard(_expert_matmul(h, p["w_down"]).view(e, b, cap, d), "experts", "batch", "expert_cap", "embed")
-    if dispatch_mode == "scatter":
+    if sharded:
+        out = _combine_local(expert_out, e_idx, pos, keep, gates, s)
+    elif dispatch_mode == "scatter":
         out = _combine_gather(expert_out, rows, keep, gates, s)
     else:
         comb = disp * gates[:, :, None, None].to(x.dtype)

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
-from ..sharding.logical import contiguous_grads, is_dtensor, shard
+from ..sharding.logical import contiguous_grads, is_dtensor, local_einsum, shard
 from .layers import Params, dense_init, rms_norm
 
 __all__ = ["ssm_init", "ssm_apply", "init_ssm_cache", "ssm_decode", "ssd_chunked", "SSDChunkFn"]
@@ -117,36 +117,6 @@ def _chunk_blocks_plain(xc, ac, a_cum, b, cc, bsz, nc, chunk, g, n, rep):
     return y_diag, states
 
 
-def _chunk_blocks_local(xc, ac, a_cum, b, c, cc, g, n):
-    """Steps 1 and 2 of DTensors on each rank's shards (``local_map``):
-    the kernel on CUDA shards, the plain branch on CPU and meta ones.
-    Batch (dim 0) and heads (dim 3 of xc (B,nc,Q,H,P)) stay as xc's
-    placements; b and c (B,S,G,N) follow the batch sharding only — one
-    group, so every local head reads it whole, and their gradients are
-    partial sums over the head shards.  Out: y_diag placed as xc,
-    the states (B,nc,H,P,N) with the heads sharding on their dim 2."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
-    if g != 1:
-        raise NotImplementedError(f"sharded SSD blocks take one group of B/C, got {g}")
-    x_pl = tuple(pl if isinstance(pl, Shard) and pl.dim in (0, 3) else Replicate() for pl in xc.placements)
-    bc_pl = tuple(pl if pl == Shard(0) else Replicate() for pl in x_pl)
-    st_pl = tuple(Shard(2) if pl == Shard(3) else pl for pl in x_pl)
-
-    def body(xl, acl, a_cuml, bl, cl, ccl):
-        contiguous_grads(xl, acl, a_cuml, bl, cl, ccl)
-        bsz, nc, chunk, h = xl.shape[:4]
-        if xl.is_cuda:
-            return _chunk_blocks_kernel(xl, acl, bl, cl, bsz, nc, chunk, 1, n)
-        return _chunk_blocks_plain(xl, acl, a_cuml, bl, ccl, bsz, nc, chunk, 1, n, h)
-
-    bc_grad = tuple(Partial() if pl == Shard(3) else bp for pl, bp in zip(x_pl, bc_pl))  # one partial a head shard
-    return local_map(body, out_placements=(x_pl, st_pl), in_placements=(x_pl, x_pl, x_pl, bc_pl, bc_pl, x_pl),
-                     in_grad_placements=(x_pl, x_pl, x_pl, bc_grad, bc_grad, x_pl),
-                     device_mesh=xc.device_mesh, redistribute_inputs=True)(xc, ac, a_cum, b, c, cc)
-
-
 def ssd_chunked(
     x: torch.Tensor,  # (B, S, H, P) pre-discretized inputs (x * dt)
     a_dt: torch.Tensor,  # (B, S, H)  A * dt (negative)
@@ -155,7 +125,11 @@ def ssd_chunked(
     chunk: int,
     init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The SSD chunked algorithm; returns (y (B,S,H,P), final_state)."""
+    """The SSD chunked algorithm; returns (y (B,S,H,P), final_state).
+    DTensors run it on each rank's shards (:func:`_ssd_chunked_local`)."""
+    if is_dtensor(x):
+        return _ssd_chunked_local(x, a_dt, b, c, chunk, init_state)
+    contiguous_grads(x, a_dt, b, c)  # as on local shards: the same gradients' layouts, so the same sums upstream
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     s_orig = s
@@ -174,9 +148,7 @@ def ssd_chunked(
     ac = a_dt.reshape(bsz, nc, chunk, h).float()
     a_cum = torch.cumsum(ac, dim=2)  # (B,nc,Q,H)
     cc = c.reshape(bsz, nc, chunk, g, n).repeat_interleave(rep, dim=3)  # (B,nc,Q,H,N)
-    if is_dtensor(xc):
-        y_diag, states = _chunk_blocks_local(xc, ac, a_cum, b, c, cc, g, n)
-    elif x.is_cuda:
+    if x.is_cuda:
         y_diag, states = _chunk_blocks_kernel(xc, ac, b, c, bsz, nc, chunk, g, n)
     else:
         y_diag, states = _chunk_blocks_plain(xc, ac, a_cum, b, cc, bsz, nc, chunk, g, n, rep)
@@ -197,6 +169,34 @@ def ssd_chunked(
     return y, state
 
 
+def _ssd_chunked_local(x, a_dt, b, c, chunk: int, init_state=None):
+    """:func:`ssd_chunked` of DTensors on each rank's shards
+    (``local_map``): the kernel on CUDA shards, the plain branch on CPU
+    and meta ones, and the inter-chunk recurrence on each shard's own
+    heads, so DTensor sees none of the pads, chunk reshapes and per-chunk
+    slices.  Batch (dim 0) and heads (dim 2 of x (B,S,H,P) and a_dt
+    (B,S,H)) stay as x's placements, any other sharding (the sequence) is
+    gathered; b and c (B,S,G,N) follow the batch sharding only — one
+    group, so every local head reads it whole, and their gradients are
+    partial sums over the head shards.  Out: y placed as x, the final
+    state (B,H,P,N) with the heads sharding on its dim 1."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    x_pl = tuple(pl if isinstance(pl, Shard) and pl.dim in (0, 2) else Replicate() for pl in x.placements)
+    if b.shape[2] != 1 and Shard(2) in x_pl:
+        raise NotImplementedError(f"sharded SSD heads take one group of B/C, got {b.shape[2]}")
+    bc_pl = tuple(pl if pl == Shard(0) else Replicate() for pl in x_pl)
+    st_pl = tuple(Shard(1) if pl == Shard(2) else pl for pl in x_pl)
+    bc_grad = tuple(Partial() if pl == Shard(2) else bp for pl, bp in zip(x_pl, bc_pl))  # one partial a head shard
+
+    st = () if init_state is None else (init_state,)  # (local_map takes no None input)
+    return local_map(lambda xl, al, bl, cl, *sl: ssd_chunked(xl, al, bl, cl, chunk, *sl), out_placements=(x_pl, st_pl),
+                     in_placements=(x_pl, x_pl, bc_pl, bc_pl) + (st_pl,) * len(st),
+                     in_grad_placements=(x_pl, x_pl, bc_grad, bc_grad) + (st_pl,) * len(st),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(x, a_dt, b, c, *st)
+
+
 def _in_proj_split(p: Params, u: torch.Tensor, cfg: ArchConfig):
     d_in, n_heads, n_groups, d_state, conv_dim = _dims(cfg)
     zxbcdt = torch.einsum("bsd,de->bse", u, p["in_proj"])
@@ -207,11 +207,15 @@ def _in_proj_split(p: Params, u: torch.Tensor, cfg: ArchConfig):
 
 
 def _conv_apply(p: Params, xbc: torch.Tensor, conv_state: Optional[torch.Tensor], cfg: ArchConfig):
-    """Depthwise causal conv1d over (B,S,conv_dim); returns (out, new_state)."""
+    """Depthwise causal conv1d over (B,S,conv_dim); returns (out, new_state).
+    DTensors run it on each rank's shards (:func:`_conv_local`)."""
+    if is_dtensor(xbc) and conv_state is None:
+        return _conv_local(p, xbc, cfg)
     k = cfg.ssm_conv
     if conv_state is not None:
         xbc_full = torch.cat([conv_state, xbc], dim=1)
     else:
+        contiguous_grads(xbc, p["conv_w"], p["conv_b"])  # as on local shards
         xbc_full = F.pad(xbc, (0, 0, k - 1, 0))
     s = xbc.shape[1]
     # sum_k w[k] * x[t - (K-1) + k]
@@ -219,6 +223,28 @@ def _conv_apply(p: Params, xbc: torch.Tensor, conv_state: Optional[torch.Tensor]
     out = F.silu(out + p["conv_b"])
     new_state = xbc_full[:, -(k - 1) :] if k > 1 else xbc[:, :0]
     return out, new_state
+
+
+def _conv_local(p: Params, xbc: torch.Tensor, cfg: ArchConfig):
+    """:func:`_conv_apply` of a DTensor prompt on each rank's shards
+    (``local_map``), the causal pad and the shifted-window sum included.
+    The conv is depthwise over ``conv_dim`` and runs along the sequence,
+    which no rule shards for a prompt: xbc keeps its batch sharding and
+    gathers any other (a sequence shard would need the K−1 inputs before
+    it); the weights are read whole, and their gradients are partial sums
+    over the batch shards.  Out: the activations and the last K−1 inputs,
+    both placed as xbc's batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    x_pl = tuple(Shard(0) if pl == Shard(0) else Replicate() for pl in xbc.placements)
+    w_pl = (Replicate(),) * len(x_pl)
+    w_grad = tuple(Partial() if pl == Shard(0) else Replicate() for pl in x_pl)  # one partial a batch shard
+
+    return local_map(lambda xl, wl, bl: _conv_apply({"conv_w": wl, "conv_b": bl}, xl, None, cfg),
+                     out_placements=(x_pl, x_pl), in_placements=(x_pl, w_pl, w_pl),
+                     in_grad_placements=(x_pl, w_grad, w_grad), device_mesh=xbc.device_mesh,
+                     redistribute_inputs=True)(xbc, p["conv_w"], p["conv_b"])
 
 
 def _ssd_inputs(p: Params, xbc: torch.Tensor, dt: torch.Tensor, cfg: ArchConfig):
@@ -290,7 +316,7 @@ def ssm_decode(p: Params, u: torch.Tensor, cfg: ArchConfig, state: Params) -> Tu
     xd = x[:, 0] * dt[:, 0, :, None].to(x.dtype)  # (B,H,P)
     ssm = state["ssm"]
     s_new = decay[..., None, None].to(ssm.dtype) * ssm + torch.einsum("bhp,bhn->bhpn", xd, b1).to(ssm.dtype)
-    y = torch.einsum("bhpn,bhn->bhp", s_new, c1)  # (B,H,P)
+    y = local_einsum("bhpn,bhn->bhp", s_new, c1)  # (B,H,P); on DTensors each rank's batch and heads
     y = y + x[:, 0] * p["D"][None, :, None].to(x.dtype)
     y = y.reshape(bsz, 1, d_in)
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)

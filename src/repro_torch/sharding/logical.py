@@ -48,6 +48,7 @@ __all__ = [
     "is_dtensor",
     "replicate_plain",
     "contiguous_grads",
+    "local_einsum",
 ]
 
 
@@ -278,3 +279,38 @@ def shard(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
 def named_sharding(mesh: Any, *names: Optional[str], rules: Optional[ShardingRules] = None) -> NamedSharding:
     r = rules or current_rules() or DEFAULT_RULES
     return NamedSharding(mesh, r.spec(*names))
+
+
+def local_einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, *operands)``; on DTensors, on each rank's shards
+    (``local_map``).  On each mesh dim the first operand sharded there
+    names the letter it shards, and every operand holding that letter is
+    sharded by it; the others are read whole, and their gradients are
+    partial sums over its shards.  A letter the output keeps shards the
+    output; a summed one leaves each rank a partial sum, and the output is
+    ``Partial`` there.  Mesh dims no operand shards replicate.  (DTensor's
+    own einsum folds letters into one dim of a matrix product, a ``view``
+    that merges a sharded dim behind another, which some releases
+    refuse.)"""
+    if not any(is_dtensor(t) for t in operands):
+        return torch.einsum(eq, *operands)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    ins, out = eq.replace(" ", "").split("->")
+    specs = ins.split(",")
+    mesh = next(t.device_mesh for t in operands if is_dtensor(t))
+    letters = []
+    for m in range(mesh.ndim):
+        pls = [(spec, t.placements[m]) for spec, t in zip(specs, operands) if is_dtensor(t)]
+        letters.append(next((spec[pl.dim] for spec, pl in pls if isinstance(pl, Shard)), None))
+
+    def placed(spec: str) -> Tuple[Any, ...]:
+        return tuple(Shard(spec.index(c)) if c is not None and c in spec else Replicate() for c in letters)
+
+    out_pl = [Partial() if c is not None and c not in out else pl for c, pl in zip(letters, placed(out))]
+    in_pl = tuple(placed(spec) for spec in specs)
+    grad_pl = tuple(tuple(Partial() if c is not None and c not in spec else pl for c, pl in zip(letters, placed(spec)))
+                    for spec in specs)
+    return local_map(lambda *ts: torch.einsum(eq, *ts), out_placements=out_pl, in_placements=in_pl,
+                     in_grad_placements=grad_pl, device_mesh=mesh, redistribute_inputs=True)(*operands)

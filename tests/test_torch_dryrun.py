@@ -4,8 +4,9 @@ group is process-global), the counterparts of the reference's
 ``test_dryrun_cell_small_mesh_subprocess`` and
 ``test_multipod_mesh_shapes_subprocess``.
 
-* ``--cells`` on a 4×4 mesh (world 16) and ``tinyllama-1.1b × decode_32k``
-  on the real 16×16 fake mesh: status ``ok``, the reference's keys, some
+* ``--cells`` on a 4×4 mesh (world 16) — the dense floor's and one cell
+  each of the MoE, SSM, hybrid and MLA families — and ``tinyllama-1.1b ×
+  decode_32k`` on the real 16×16 fake mesh: status ``ok``, the reference's keys, some
   collective traffic, and ``memory.argument_size_in_bytes`` equal to the
   local bytes of the placed arguments — recomputed here from the spec
   trees and the mesh's axis sizes, exactly.
@@ -82,8 +83,13 @@ def _expected_arg_bytes(arch_name, shape_name, mesh_shape) -> int:
     return total + _local_bytes(params, param_specs(params, rules), mesh) + _local_bytes(cache, cache_specs(cache, rules), mesh)
 
 
+# the dense floor's, then a cell of each family whose step first failed on
+# the card's PyTorch (the MoE dispatch, the SSM conv, the hybrid's decode,
+# MLA's train step under seq_act)
 CELLS = [("tinyllama-1.1b", "decode_32k", "4x4"), ("tinyllama-1.1b", "train_4k", "4x4"),
-         ("h2o-danube-3-4b", "prefill_32k", "4x4"), ("tinyllama-1.1b", "decode_32k", None)]
+         ("h2o-danube-3-4b", "prefill_32k", "4x4"), ("tinyllama-1.1b", "decode_32k", None),
+         ("deepseek-moe-16b", "train_4k", "4x4"), ("mamba2-130m", "prefill_32k", "4x4"),
+         ("zamba2-1.2b", "decode_32k", "4x4"), ("minicpm3-4b", "train_4k", "4x4")]
 
 
 @pytest.fixture(scope="module")
