@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import obs
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
 from ..sharding.logical import contiguous_grads, current_rules, is_dtensor, local_einsum, shard
@@ -512,28 +513,31 @@ def attention_decode(
     (the JAX package donates the cache) and returns it."""
     b = x.shape[0]
     h, hd = cfg.n_heads, cfg.resolved_head_dim
-    q, k, v = _project_qkv(p, x)  # (B,1,·,hd)
-    q = apply_rope(q, positions[:, None], cfg.rope_theta)
-    k = apply_rope(k, positions[:, None], cfg.rope_theta)
+    with obs.range("attn.qkv"):
+        q, k, v = _project_qkv(p, x)  # (B,1,·,hd)
+        q = apply_rope(q, positions[:, None], cfg.rope_theta)
+        k = apply_rope(k, positions[:, None], cfg.rope_theta)
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
-    slot = positions % ck.shape[1]
-    _write_slots(ck, slot, k[:, 0], ("batch", "seq_kv", "kv_heads", "head_dim"))
-    _write_slots(cv, slot, v[:, 0], ("batch", "seq_kv", "kv_heads", "head_dim"))
-    _write_slots(cpos, slot, positions, ("batch", "seq_kv"))
-    # visibility: position-tagged slots, per-request mask
-    qp = positions[:, None]
-    visible = (cpos >= 0) & (cpos <= qp)
-    if kind == "swa":
-        visible &= cpos > qp - window
-    elif kind == "chunked":  # div, not //: DTensor has no floor_divide strategy on every release
-        visible &= cpos.div(window, rounding_mode="floor") == qp.div(window, rounding_mode="floor")
-    qg = _group_heads(q, ck)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, ck).float()
-    scores = scores / math.sqrt(hd)
-    scores = scores.masked_fill(~visible[:, None, None, None, :], NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(cv.dtype)
-    out = torch.einsum("bkgqs,bskh->bqkgh", probs, cv).reshape(b, 1, h, hd)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+    with obs.range("attn.kv_write"):
+        slot = positions % ck.shape[1]
+        _write_slots(ck, slot, k[:, 0], ("batch", "seq_kv", "kv_heads", "head_dim"))
+        _write_slots(cv, slot, v[:, 0], ("batch", "seq_kv", "kv_heads", "head_dim"))
+        _write_slots(cpos, slot, positions, ("batch", "seq_kv"))
+    with obs.range("attn.attend"):
+        # visibility: position-tagged slots, per-request mask
+        qp = positions[:, None]
+        visible = (cpos >= 0) & (cpos <= qp)
+        if kind == "swa":
+            visible &= cpos > qp - window
+        elif kind == "chunked":  # div, not //: DTensor has no floor_divide strategy on every release
+            visible &= cpos.div(window, rounding_mode="floor") == qp.div(window, rounding_mode="floor")
+        qg = _group_heads(q, ck)
+        scores = torch.einsum("bqkgh,bskh->bkgqs", qg, ck).float()
+        scores = scores / math.sqrt(hd)
+        scores = scores.masked_fill(~visible[:, None, None, None, :], NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(cv.dtype)
+        out = torch.einsum("bkgqs,bskh->bqkgh", probs, cv).reshape(b, 1, h, hd)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
 
 
 # ============================================================== MLA (minicpm3)

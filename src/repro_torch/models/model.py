@@ -49,6 +49,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from .. import obs
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..sharding.logical import contiguous_grads, is_dtensor, replicate_plain, shard
@@ -411,7 +412,8 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cac
 
 
 def _prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cache: Params) -> Tuple[torch.Tensor, Params]:
-    x = _embed_inputs(params, cfg, batch)
+    with obs.range("embed"):
+        x = _embed_inputs(params, cfg, batch)
     enc_out = None
     if cfg.is_encdec:  # the cross K/V, once a request
         enc_out = _encode(params, cfg, batch["frames"])
@@ -422,21 +424,26 @@ def _prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], ca
             ck["v"][i] = torch.einsum("bsd,dhk->bshk", enc_out, ca["wv"])
     for i in range(cfg.n_layers):
         lp = _index(params["layers"], i)
-        hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        if "ssm" in lp:
-            a, _ = ssm_mod.ssm_apply(lp["ssm"], hn, cfg, state=_index(cache["ssm"], i))
-        elif cfg.attn_kind == "mla":
-            a, _ = attn.mla_prefill(lp["attn"], hn, cfg, _index(cache["kv"], i))
-        else:
-            a, _ = attn.attention_prefill(lp["attn"], hn, cfg, _index(cache["kv"], i), *_layer_kind(cfg, i))
-        x = shard(x + a, "batch", "seq", "embed")  # as the train path: a seq_act mixer hands back its sequence shards
+        with obs.range("mixer"):
+            hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            if "ssm" in lp:
+                a, _ = ssm_mod.ssm_apply(lp["ssm"], hn, cfg, state=_index(cache["ssm"], i))
+            elif cfg.attn_kind == "mla":
+                a, _ = attn.mla_prefill(lp["attn"], hn, cfg, _index(cache["kv"], i))
+            else:
+                a, _ = attn.attention_prefill(lp["attn"], hn, cfg, _index(cache["kv"], i), *_layer_kind(cfg, i))
+            x = shard(x + a, "batch", "seq", "embed")  # as the train path: a seq_act mixer hands back its sequence shards
         if enc_out is not None:
-            x = x + _cross_attend(_index(params["cross"], i), cfg, x, enc_out)
+            with obs.range("cross"):
+                x = x + _cross_attend(_index(params["cross"], i), cfg, x, enc_out)
         if "ln2" in lp:
-            x = x + _channel(lp, cfg, rms_norm(x, lp["ln2"], cfg.norm_eps))
+            with obs.range("channel"):
+                x = x + _channel(lp, cfg, rms_norm(x, lp["ln2"], cfg.norm_eps))
         if "shared_block" in params and i % cfg.attn_every == 0:
-            x = _shared_block(params["shared_block"], cfg, x, _index(cache["shared_attn"], i // cfg.attn_every))
-    return _logits(params, cfg, x[:, -1:, :]), cache
+            with obs.range("shared_block"):
+                x = _shared_block(params["shared_block"], cfg, x, _index(cache["shared_attn"], i // cfg.attn_every))
+    with obs.range("logits"):
+        return _logits(params, cfg, x[:, -1:, :]), cache
 
 
 def _channel(lp: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
@@ -521,22 +528,28 @@ def _pad_rows(t: torch.Tensor, n: int, dim: int = 0) -> torch.Tensor:
 
 def _decode_tile(params: Params, cfg: ArchConfig, tokens: torch.Tensor, positions: torch.Tensor, cache: Params) -> torch.Tensor:
     """:func:`decode_step` on one tile of rows; returns the logits."""
-    x = _embed_tokens(params, tokens)
+    with obs.range("embed"):
+        x = _embed_tokens(params, tokens)
     for i in range(cfg.n_layers):
         lp = _index(params["layers"], i)
-        hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        if "ssm" in lp:
-            a, _ = ssm_mod.ssm_decode(lp["ssm"], hn, cfg, _index(cache["ssm"], i))
-        elif cfg.attn_kind == "mla":
-            a, _ = attn.mla_decode(lp["attn"], hn, cfg, _index(cache["kv"], i), positions)
-        else:
-            a, _ = attn.attention_decode(lp["attn"], hn, cfg, _index(cache["kv"], i), positions, *_layer_kind(cfg, i))
-        x = x + a
+        with obs.range("mixer"):
+            hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            if "ssm" in lp:
+                a, _ = ssm_mod.ssm_decode(lp["ssm"], hn, cfg, _index(cache["ssm"], i))
+            elif cfg.attn_kind == "mla":
+                a, _ = attn.mla_decode(lp["attn"], hn, cfg, _index(cache["kv"], i), positions)
+            else:
+                a, _ = attn.attention_decode(lp["attn"], hn, cfg, _index(cache["kv"], i), positions, *_layer_kind(cfg, i))
+            x = x + a
         if "cross" in params:
-            ck = cache["cross_kv"]
-            x = x + _cross_decode(_index(params["cross"], i), cfg, x, ck["k"][i], ck["v"][i])
+            with obs.range("cross"):
+                ck = cache["cross_kv"]
+                x = x + _cross_decode(_index(params["cross"], i), cfg, x, ck["k"][i], ck["v"][i])
         if "ln2" in lp:
-            x = x + _channel(lp, cfg, rms_norm(x, lp["ln2"], cfg.norm_eps))
+            with obs.range("channel"):
+                x = x + _channel(lp, cfg, rms_norm(x, lp["ln2"], cfg.norm_eps))
         if "shared_block" in params and i % cfg.attn_every == 0:
-            x = _shared_block(params["shared_block"], cfg, x, _index(cache["shared_attn"], i // cfg.attn_every), positions)
-    return _logits(params, cfg, x)
+            with obs.range("shared_block"):
+                x = _shared_block(params["shared_block"], cfg, x, _index(cache["shared_attn"], i // cfg.attn_every), positions)
+    with obs.range("logits"):
+        return _logits(params, cfg, x)

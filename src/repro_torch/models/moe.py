@@ -41,6 +41,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
 from ..sharding.logical import contiguous_grads, is_dtensor, shard
@@ -245,36 +246,41 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, dispatch_mode: str = 
         raise ValueError(f"moe_apply: dispatch_mode {dispatch_mode!r} not in {DISPATCH_MODES}")
     b, s, d = x.shape
     e = cfg.n_experts
-    e_idx, pos, keep, gates, cap, aux = _route(p, x, cfg)
+    with obs.range("moe.route"):
+        e_idx, pos, keep, gates, cap, aux = _route(p, x, cfg)
     sharded = is_dtensor(x)
     if sharded and dispatch_mode != "scatter":
         raise NotImplementedError(f"moe_apply: dispatch_mode {dispatch_mode!r} runs unsharded only; "
                                   "DTensors take 'scatter'")
-    if sharded:
-        expert_in = _dispatch_local(x, e_idx, pos, keep, cap, e)
-    elif dispatch_mode == "scatter":
-        rows = _queue_rows(e_idx, pos, keep, cap, e)
-        expert_in = _dispatch_scatter(x, rows, cap, e)
-    else:  # einsum oracle (small shapes only)
-        slot_oh = _one_hot(pos, cap).to(x.dtype) * keep[..., None].to(x.dtype)
-        disp = _one_hot(e_idx, e).to(x.dtype)[..., None] * slot_oh[:, :, None, :]  # (B,kS,E,C)
-        x_rep = x.repeat(1, e_idx.shape[1] // s, 1)
-        expert_in = torch.einsum("bkec,bkd->ebcd", disp, x_rep).contiguous()
-    expert_in = shard(expert_in, "experts", "batch", "expert_cap", "embed")
-    q = expert_in.view(e, b * cap, d)  # one (E, B·C, D) batch for the kernel
-    if cfg.gated_ffn:
-        h = F.silu(_expert_matmul(q, p["w_gate"])) * _expert_matmul(q, p["w_up"])
-    else:
-        h = F.gelu(_expert_matmul(q, p["w_up"]), approximate="tanh")
-    expert_out = shard(_expert_matmul(h, p["w_down"]).view(e, b, cap, d), "experts", "batch", "expert_cap", "embed")
-    if sharded:
-        out = _combine_local(expert_out, e_idx, pos, keep, gates, s)
-    elif dispatch_mode == "scatter":
-        out = _combine_gather(expert_out, rows, keep, gates, s)
-    else:
-        comb = disp * gates[:, :, None, None].to(x.dtype)
-        out = torch.einsum("bkec,ebcd->bkd", comb, expert_out)
-        out = out.reshape(b, -1, s, d).sum(dim=1)
+    with obs.range("moe.dispatch"):
+        if sharded:
+            expert_in = _dispatch_local(x, e_idx, pos, keep, cap, e)
+        elif dispatch_mode == "scatter":
+            rows = _queue_rows(e_idx, pos, keep, cap, e)
+            expert_in = _dispatch_scatter(x, rows, cap, e)
+        else:  # einsum oracle (small shapes only)
+            slot_oh = _one_hot(pos, cap).to(x.dtype) * keep[..., None].to(x.dtype)
+            disp = _one_hot(e_idx, e).to(x.dtype)[..., None] * slot_oh[:, :, None, :]  # (B,kS,E,C)
+            x_rep = x.repeat(1, e_idx.shape[1] // s, 1)
+            expert_in = torch.einsum("bkec,bkd->ebcd", disp, x_rep).contiguous()
+        expert_in = shard(expert_in, "experts", "batch", "expert_cap", "embed")
+    with obs.range("moe.experts"):
+        q = expert_in.view(e, b * cap, d)  # one (E, B·C, D) batch for the kernel
+        if cfg.gated_ffn:
+            h = F.silu(_expert_matmul(q, p["w_gate"])) * _expert_matmul(q, p["w_up"])
+        else:
+            h = F.gelu(_expert_matmul(q, p["w_up"]), approximate="tanh")
+        expert_out = shard(_expert_matmul(h, p["w_down"]).view(e, b, cap, d), "experts", "batch", "expert_cap", "embed")
+    with obs.range("moe.combine"):
+        if sharded:
+            out = _combine_local(expert_out, e_idx, pos, keep, gates, s)
+        elif dispatch_mode == "scatter":
+            out = _combine_gather(expert_out, rows, keep, gates, s)
+        else:
+            comb = disp * gates[:, :, None, None].to(x.dtype)
+            out = torch.einsum("bkec,ebcd->bkd", comb, expert_out)
+            out = out.reshape(b, -1, s, d).sum(dim=1)
     if "shared" in p:
-        out = out + ffn_apply(p["shared"], x, gated=cfg.gated_ffn)
+        with obs.range("moe.shared"):
+            out = out + ffn_apply(p["shared"], x, gated=cfg.gated_ffn)
     return out, aux.float()

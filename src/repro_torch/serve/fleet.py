@@ -50,12 +50,12 @@ from __future__ import annotations
 import functools
 import itertools
 import threading
-import time
 import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+from .. import obs
 from ..checkpoint.snapshot import pack_state, unpack_state
 from ..configs.base import ArchConfig
 from ..core.comm.collective import CollectiveGroup, CommChannel
@@ -423,7 +423,7 @@ class Router:
     # ------------------------------------------------------------------ client
     def submit(self, prompt: List[int], max_new: int = 16) -> Request:
         req = Request(rid=next(self._rid), prompt=list(prompt), max_new=max_new)
-        req.submitted_at = time.monotonic()
+        req.submitted_at = obs.now()
         with self._inflight_lock:
             self._inflight[req.rid] = req
         self._queue.append(req)
@@ -502,7 +502,7 @@ class Router:
 
     # -------------------------------------------------------- response plane
     def _handle_response(self, payload: bytes) -> None:
-        now = time.monotonic()
+        now = obs.now()
         for item in decode_msg(payload):
             if item[0] == "eagain":
                 _, wid, rid = item

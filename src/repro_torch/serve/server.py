@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import itertools
 import threading
-import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
@@ -36,6 +35,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..configs.base import ArchConfig
 from ..core.comm.collective import CommChannel
 from ..core.comm.progress import ProgressEngine, ProgressPolicy, run_step
@@ -77,9 +77,15 @@ class Request:
     max_new: int
     out_tokens: List[int] = field(default_factory=list)
     done_event: threading.Event = field(default_factory=threading.Event)
+    # seconds on the tracer's clock (obs.now)
     submitted_at: float = 0.0
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
+    # server side, ns on the tracer's clock: the arrival in the admission
+    # queue and the first token computed (the starts of the request.queue
+    # and request.hold intervals)
+    arrived_ns: Optional[int] = None
+    first_token_ns: Optional[int] = None
 
 
 # emit(req, token, done) — one generated token leaves the model side.
@@ -137,8 +143,9 @@ class DecodeCore:
         self.steps = 0
         self.tokens_out = 0
         self.prefill_calls = 0  # single-shot prefill dispatches (0 when chunked)
-        # host wall seconds in the model calls; each ends in the argmax read
-        # back to the host, so device time is included
+        # host wall seconds in the model calls, the sums of their spans
+        # (prefill; decode.dispatch + decode.sync); each ends in the argmax
+        # read back to the host, so device time is included
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
         # worst prompt-tokens-of-prefill-work attributed to a single engine
@@ -193,16 +200,21 @@ class DecodeCore:
             self._prefill_queue[slot] = deque(prompt)
             self._prefill_open[slot] = more_chunks
             self._rid_slot[req.rid] = slot
+            if req.arrived_ns is not None:
+                obs.interval("request.queue", req.rid, req.arrived_ns, obs.now_ns())
             return slot
         prompt = req.prompt[: self.max_prefill]
         # single-sequence prefill on a scratch cache, then copy into the slot
         one = init_cache(self.arch, 1, self.context, self.device)
-        t0 = time.perf_counter()
-        toks = torch.tensor([prompt], dtype=torch.long, device=self.device)
-        logits, one = prefill(self.params, self.arch, {"tokens": toks}, one)
-        self._splice(one, slot)
-        tok = int(torch.argmax(logits[0, -1]))
-        self.prefill_seconds += time.perf_counter() - t0
+        with obs.span("prefill", req.rid) as sp:
+            toks = torch.tensor([prompt], dtype=torch.long, device=self.device)
+            logits, one = prefill(self.params, self.arch, {"tokens": toks}, one)
+            self._splice(one, slot)
+            tok = int(torch.argmax(logits[0, -1]))
+        if req.arrived_ns is not None:
+            obs.interval("request.queue", req.rid, req.arrived_ns, sp.start_ns)
+        req.first_token_ns = sp.end_ns
+        self.prefill_seconds += (sp.end_ns - sp.start_ns) * 1e-9
         self.prefill_calls += 1
         self._pending_burst += len(prompt)
         done = req.max_new <= 1
@@ -250,12 +262,15 @@ class DecodeCore:
             else:  # starved mid-prefill: re-feed the last token, hold position
                 starved.append(i)
         held = [(i, self._row(i)) for i in starved]
-        t0 = time.perf_counter()
-        toks = torch.from_numpy(self._last_tok[:, None].astype(np.int64)).to(self.device)
-        pos = torch.from_numpy(self._positions.copy()).to(self.device)
-        logits, self.cache = decode_step(self.params, self.arch, toks, pos, self.cache)
-        nxt = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy().astype(np.int32)
-        self.decode_seconds += time.perf_counter() - t0
+        with obs.span("decode.dispatch") as sp:
+            t0 = sp.start_ns
+            toks = torch.from_numpy(self._last_tok[:, None].astype(np.int64)).to(self.device)
+            pos = torch.from_numpy(self._positions.copy()).to(self.device)
+            logits, self.cache = decode_step(self.params, self.arch, toks, pos, self.cache)
+            nxt = torch.argmax(logits[:, 0, :], dim=-1)
+            sp.then("decode.sync")
+            nxt = nxt.cpu().numpy().astype(np.int32)
+        self.decode_seconds += (sp.end_ns - t0) * 1e-9
         for i, row in held:
             self._splice(row, i)
         for i in active:
@@ -270,6 +285,7 @@ class DecodeCore:
                 # first generated token
                 del self._prefill_queue[i]
                 del self._prefill_open[i]
+                req.first_token_ns = sp.end_ns
             else:
                 self._positions[i] += 1
             self._remaining[i] -= 1
@@ -379,6 +395,10 @@ class InferenceServer:
         self._inflight: Dict[int, Request] = {}  # rid -> client-side Request
         self._inflight_lock = threading.Lock()
         self._outbox: List[tuple] = []  # (rid, tok, done) batch of one step
+        # rid -> first token computed (ns), of the requests whose first token
+        # is in the outbox: request.hold ends when the batch is flushed
+        self._holds: Dict[int, int] = {}
+        self._flushed_ns = 0
         if cfg.transport in ("collective", "shmem"):
             self._channel = CommChannel(limits=cfg.limits, backend=cfg.transport)
             # step_lock=True: the whole engine step runs behind a try-lock
@@ -410,8 +430,10 @@ class InferenceServer:
         if not prompt or max_new < 1:
             raise ValueError(f"a request needs a prompt and max_new >= 1 (got {len(prompt)} tokens, max_new={max_new})")
         req = Request(rid=next(self._rid), prompt=list(prompt), max_new=max_new)
-        req.submitted_at = time.monotonic()
+        t = obs.now_ns()
+        req.submitted_at = t * 1e-9
         if self._channel is None:
+            req.arrived_ns = t
             self._pending.append(req)  # direct hand-off
         else:
             with self._inflight_lock:
@@ -436,7 +458,7 @@ class InferenceServer:
             ch.repost(rec.ctx)  # keep the pre-post depth
             if rec.ctx == "request":
                 rid, prompt, max_new = decode_msg(rec.data)
-                self._pending.append(Request(rid=rid, prompt=prompt, max_new=max_new))
+                self._pending.append(Request(rid=rid, prompt=prompt, max_new=max_new, arrived_ns=obs.now_ns()))
             else:  # response: a token batch for the client side
                 self._apply_response(rec.data)
             return True
@@ -460,13 +482,14 @@ class InferenceServer:
         retries → progress → reap → dispatch)."""
         if self.engine is None:
             return False
-        return run_step(self.engine, self, 0)
+        with obs.span("handoff"):
+            return run_step(self.engine, self, 0)
 
     def _apply_response(self, payload: bytes) -> None:
         """Client side: apply an arrived token batch to its requests.  A
         finished request leaves ``_inflight`` only AFTER its final token is
         appended and ``done_event`` is set."""
-        now = time.monotonic()
+        now = obs.now()
         for rid, tok, done in decode_msg(payload):
             with self._inflight_lock:
                 req = self._inflight.get(rid)
@@ -485,42 +508,53 @@ class InferenceServer:
         """One generated token leaves the server: directly into the
         client's Request (inline), or into this step's outbound batch."""
         if self._channel is None:
-            now = time.monotonic()
+            t = obs.now_ns()
+            now = t * 1e-9
             if req.first_token_at is None:
                 req.first_token_at = now
+                obs.interval("request.hold", req.rid, req.first_token_ns, t)
             req.out_tokens.append(tok)
             if done:
                 req.finished_at = now
                 req.done_event.set()
         else:
             self._outbox.append((req.rid, tok, done))
+            if req.first_token_ns > self._flushed_ns:  # computed since the last flush: the first token
+                self._holds[req.rid] = req.first_token_ns
 
     def _flush_outbox(self) -> bool:
         if self._channel is None or not self._outbox:
             return False
-        batch, self._outbox = self._outbox, []
-        self._channel.send_response(encode_msg(batch))
+        with obs.span("flush") as sp:
+            batch, self._outbox = self._outbox, []
+            self._channel.send_response(encode_msg(batch))
+        for rid, t in self._holds.items():
+            obs.interval("request.hold", rid, t, sp.start_ns)
+        self._holds.clear()
+        self._flushed_ns = sp.start_ns
         return True
 
     # ----------------------------------------------------------------- engine
     def _admit(self) -> None:
-        for _ in self.core.free_slots():
-            if not self._pending:
-                return
-            self.core.admit(self._pending.popleft(), self._emit)
+        with obs.span("admit"):
+            for _ in self.core.free_slots():
+                if not self._pending:
+                    return
+                self.core.admit(self._pending.popleft(), self._emit)
 
     def step(self) -> bool:
         """One engine iteration: pump the comm hand-off, admit, batched-
         decode all active slots, flush the token batch back."""
-        self._comm_step()
-        self._admit()
-        if not self.core.step(self._emit):
-            if self._flush_outbox():  # e.g. prefill-only finishes
-                self._comm_step()
-            return False
-        self._flush_outbox()
-        self._comm_step()
-        return True
+        with obs.span("engine.step"):
+            self._comm_step()
+            self._admit()
+            if not self.core.step(self._emit):
+                if self._flush_outbox():  # e.g. prefill-only finishes
+                    self._comm_step()
+                return False
+            self._flush_outbox()
+            self._comm_step()
+            return True
 
     # ------------------------------------------------------------- lifecycle
     def pending_requests(self) -> int:
