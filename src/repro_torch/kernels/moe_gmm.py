@@ -11,12 +11,15 @@ tensor launches the kernel (or raises), a CPU tensor takes
 the kernel masks the ragged tiles itself.  The kernel reads x and w through
 their strides but wants their last dims (D and F) contiguous: the wrapper
 copies an operand whose last dim is not (same values, so the same result
-bit for bit) and counts it in ``grouped_matmul.copies``.
+bit for bit) and counts it in ``grouped_matmul.copies``.  Both routes
+write into a given ``out`` where they are handed one (a CUDA graph that
+reads the product needs it at the address it captured).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -29,10 +32,20 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_C = 64  # output rows of one block of the f32 route: BC in csrc/moe_gmm.cu
 
 
-def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Copy of ``repro.kernels.ref.grouped_matmul_ref``: the product in
-    f32, cast to x's dtype."""
-    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    f32, cast to x's dtype (written into ``out`` when given)."""
+    if out is not None:
+        _check_out(out, x, w)
+    y = torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    return y if out is None else out.copy_(y)
+
+
+def _check_out(out: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> None:
+    want = (x.shape[0], x.shape[1], w.shape[2])
+    if tuple(out.shape) != want or out.dtype != x.dtype or out.device != x.device or not out.is_contiguous():
+        raise ValueError(f"grouped_matmul: out must be a contiguous {want} {x.dtype} tensor on {x.device}; "
+                         f"got {tuple(out.shape)} {out.dtype} on {out.device}")
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -55,15 +68,18 @@ def _lib():
     return lib
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (E, C, D) × w (E, D, F) → (E, C, F) in x's dtype.  CUDA tensors
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (E, C, D) × w (E, D, F) → (E, C, F) in x's dtype, written into
+    ``out`` (contiguous, x's dtype and device) when given.  CUDA tensors
     run the kernel (read through their strides; an operand whose last dim
     is not contiguous is first copied contiguous), CPU and meta tensors
     :func:`grouped_matmul_plain`.  ``grouped_matmul.launches`` counts
     kernel launches, ``grouped_matmul.copies`` the copies."""
     if x.device.type in ("cpu", "meta"):  # meta: the dry-run's shapes, no data
-        return grouped_matmul_plain(x, w)
+        return grouped_matmul_plain(x, w, out)
     _check(x, w)
+    if out is not None:
+        _check_out(out, x, w)
     refuse_autograd("grouped_matmul", x, w)
     if x.shape[2] > 1 and x.stride(2) != 1:
         x = x.contiguous()
@@ -73,7 +89,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         grouped_matmul.copies += 1
     e, c, d = x.shape
     f = w.shape[2]
-    out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(x.device):

@@ -6,7 +6,7 @@ PyTorch version.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,6 +33,7 @@ def ssd_chunk(a_dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor, c: torch.Ten
     return ssd_chunk_kernel(a_dt, x, b, c)
 
 
-def expert_ffn_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Per-expert FFN product: x (E,C,D) × w (E,D,F) → (E,C,F) in x's dtype."""
-    return grouped_matmul(x, w)
+def expert_ffn_matmul(x: torch.Tensor, w: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-expert FFN product: x (E,C,D) × w (E,D,F) → (E,C,F) in x's dtype,
+    written into ``out`` (contiguous, of x's dtype and device) when given."""
+    return grouped_matmul(x, w, out=out)

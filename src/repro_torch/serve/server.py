@@ -30,7 +30,7 @@ import itertools
 import threading
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -41,7 +41,11 @@ from ..core.comm.collective import CommChannel
 from ..core.comm.progress import ProgressEngine, ProgressPolicy, run_step
 from ..core.comm.resources import ResourceLimits
 from ..core.comm.wire import decode_msg, encode_msg
-from ..models import decode_step, init_cache, prefill
+from ..models import init_cache, prefill
+from ..models import decode_step as model_decode_step
+from ..models.decode_graph import DecodeGraph
+from ..models.model import DECODE_TILE
+from ..sharding.logical import is_dtensor
 from ..tree import tree_map
 
 __all__ = ["ServeConfig", "Request", "DecodeCore", "InferenceServer"]
@@ -92,6 +96,17 @@ class Request:
 EmitFn = Callable[[Request, int, bool], None]
 
 
+def decode_step(params: Any, arch: ArchConfig, tokens: torch.Tensor, positions: torch.Tensor, cache: Any):
+    """:func:`models.decode_step`, replayed from the CUDA graphs captured on
+    these ``params`` and ``cache`` (:class:`DecodeGraph`) where there are
+    some: the one call :class:`DecodeCore` makes into the model's decode."""
+    graph = DecodeGraph.on(params, cache)
+    if graph is None:
+        return model_decode_step(params, arch, tokens, positions, cache)
+    with obs.span("decode.graph"):
+        return graph(tokens, positions), cache
+
+
 class DecodeCore:
     """Slot scheduler + batched decode, independent of any transport.
 
@@ -114,6 +129,14 @@ class DecodeCore:
       advancing its position, and its cache row (K/V, SSM and conv state)
       is put back as it was before the step, so stall timing cannot
       perturb the stream.
+
+    On a card, a core of one full decode tile (``slots == DECODE_TILE``,
+    plain tensors) captures its decode step as CUDA graphs at construction
+    (:class:`~repro_torch.models.decode_graph.DecodeGraph`) and replays
+    them every step: the same kernels, bit for bit, enqueued in a few
+    calls.  Every other core (the CPU, a partial tile, DTensors) runs
+    ``models.decode_step`` eagerly.  ``graph_pieces`` counts the graphs
+    (0 without), ``graph_steps`` the steps replayed.
     """
 
     def __init__(
@@ -140,6 +163,11 @@ class DecodeCore:
         self._remaining = np.zeros((slots,), np.int32)
         self._last_tok = np.zeros((slots,), np.int32)
         self.cache = init_cache(arch, slots, context, self.device)
+        self._graph: Optional[DecodeGraph] = None
+        if self.device.type == "cuda" and slots == DECODE_TILE and not is_dtensor(params["embed"]):
+            with torch.inference_mode():
+                self._graph = DecodeGraph(params, arch, self.cache)
+            self._reset_row(slice(None))  # the warm-up and the capture wrote the cache
         self.steps = 0
         self.tokens_out = 0
         self.prefill_calls = 0  # single-shot prefill dispatches (0 when chunked)
@@ -160,6 +188,14 @@ class DecodeCore:
         self._rid_slot: Dict[int, int] = {}
         self._one_slot: Optional[Dict[str, Any]] = None  # abstract_slot_state's tree
 
+    @property
+    def graph_pieces(self) -> int:
+        return 0 if self._graph is None else self._graph.pieces
+
+    @property
+    def graph_steps(self) -> int:
+        return 0 if self._graph is None else self._graph.replays
+
     # ------------------------------------------------------------- occupancy
     def free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self._slots) if r is None]
@@ -175,10 +211,10 @@ class DecodeCore:
         for (_, full), (_, piece) in zip(_named_leaves(self.cache), _named_leaves(one)):
             full[:, slot] = piece[:, 0]
 
-    def _reset_row(self, slot: int) -> None:
-        """Start a recycled row afresh: zero K/V, SSM and conv state, and
-        every position tag empty (-1), so nothing of the row's last request
-        leaks into the next."""
+    def _reset_row(self, slot: Union[int, slice]) -> None:
+        """Start a recycled row (or rows) afresh: zero K/V, SSM and conv
+        state, and every position tag empty (-1), so nothing of the row's
+        last request leaks into the next."""
         for name, full in _named_leaves(self.cache):
             full[:, slot] = -1 if name == "pos" else 0
 

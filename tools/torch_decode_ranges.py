@@ -10,15 +10,18 @@ It builds ``deepseek-moe-16b`` as the cell ``deepseek-moe-16b.decode``
 serves it (``perfbench/configs/``, weights drawn on the card from the
 seed), fills the cell's 8 slots with prompts of 161 tokens (the traffic's
 mean), decodes 30 steps, and profiles ``--steps`` engine steps (host and
-card).  It prints one JSON line:
+card).  The server replays its decode step from CUDA graphs, where no
+``repro::`` range opens; the profiled steps (and ``ranges_ms``) call
+``models.decode_step`` directly on the core's cache instead, so that the
+idle time by range describes the eager step's ops.  It prints one JSON line:
 
 * ``idle_ms_a_step``: the seconds inside each ``repro::engine.step`` in
   which no device operation ran, by the innermost ``repro::`` host range
   at the gap's midpoint, in ms a step;
 * ``device_ops``: device time by operation and by the innermost card-side
   ``repro::`` range that holds it, in ms a step (the largest first);
-* ``wall_ms``: the mean host wall of a profiled step and of an unprofiled
-  one;
+* ``wall_ms``: the mean host wall of a profiled (eager) step, of an
+  unprofiled eager one and of an unprofiled replayed one;
 * ``off_ns``: what ``obs.span`` and ``obs.range`` cost with no profiler,
   in ns a call, and the spans a decode step records;
 * ``ranges_ms``: the mean host wall of a step with no profiler, under a
@@ -58,6 +61,30 @@ def off_cost(n: int = 200_000) -> dict:
            "range": 1e9 * min(timeit.repeat(one_range, number=n, repeat=3)) / n}
     obs.clear()
     return out
+
+
+@contextlib.contextmanager
+def eager(server_mod):
+    """The server's decode calls ``models.decode_step`` on the core's cache
+    (no replay)."""
+    from repro_torch.models import decode_step
+
+    real = server_mod.decode_step
+    server_mod.decode_step = decode_step
+    try:
+        yield
+    finally:
+        server_mod.decode_step = real
+
+
+def unprofiled_walls(server, n: int = 10) -> list:
+    """Host walls of ``n`` engine steps, in s."""
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        server.step()
+        walls.append(time.perf_counter() - t0)
+    return walls
 
 
 def ranges_cost(server, steps: int = 6, rounds: int = 2) -> dict:
@@ -155,6 +182,7 @@ def main(argv) -> int:
     from perfbench.weights import make_params
     from repro_torch import obs
     from repro_torch.serve import InferenceServer, ServeConfig
+    from repro_torch.serve import server as server_mod
 
     off = off_cost()
     cell = load_cell("deepseek-moe-16b.decode")
@@ -169,23 +197,19 @@ def main(argv) -> int:
     for _ in range(30):
         server.step()
     torch.cuda.synchronize()
-    obs.clear()
-    walls = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        server.step()
-        walls.append(time.perf_counter() - t0)
-    spans_a_step = len(obs.spans()[0]) / 10
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pwalls = []
-        for _ in range(args.steps):
-            t0 = time.perf_counter()
-            server.step()
-            pwalls.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
+    replayed = unprofiled_walls(server)
+    with eager(server_mod):
+        obs.clear()
+        walls = unprofiled_walls(server)
+        spans_a_step = len(obs.spans()[0]) / 10
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pwalls = unprofiled_walls(server, args.steps)
+            torch.cuda.synchronize()
+        cost = ranges_cost(server)
+    mean_ms = lambda v: 1e3 * sum(v) / len(v)  # noqa: E731
     out = {"card": torch.cuda.get_device_name(0), "torch": torch.__version__, "steps": args.steps,
-           "wall_ms": {"profiled": 1e3 * sum(pwalls) / len(pwalls), "unprofiled": 1e3 * sum(walls) / len(walls)},
-           "off_ns": dict(off, spans_a_step=spans_a_step), "ranges_ms": ranges_cost(server), **read(prof, args.steps)}
+           "wall_ms": {"profiled": mean_ms(pwalls), "unprofiled": mean_ms(walls), "replayed": mean_ms(replayed)},
+           "off_ns": dict(off, spans_a_step=spans_a_step), "ranges_ms": cost, **read(prof, args.steps)}
     line = json.dumps(out)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
