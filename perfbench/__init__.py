@@ -13,5 +13,9 @@ the name ``BENCHMARK.json`` gives it:
 * ``drivers/<driver>.py``     what the window drives (serving, training)
 * ``metrics/<metric>.py``     the reader of one metric
 * ``rooflines/<entry>.py``    the operations and bytes of one kernel entry
-* ``reference/<module>.py``   the plain float32 reference of a model family
+* ``reference/<module>.py``   a model family, named by a configuration's ``reference``:
+                              its plain float32 reference (``served_logits``), its
+                              parameter tree (``layout``) and its products a token
+                              (``per_token_flops``, ``attention_calls``, optionally
+                              ``attention_score_flops``)
 """

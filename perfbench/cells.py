@@ -1,7 +1,12 @@
 """Find a cell, its configuration and its traffic mix by name.
 
 Every lookup goes by a name to a file of its own under ``perfbench/``, so
-a new cell, configuration, mix or metric is a new file, never an edit.
+a new cell, configuration, mix, metric or model family is a new file,
+never an edit.  A family is its reference module,
+``reference/<cfg["reference"]>.py``: besides the forward pass
+(``served_logits``) it gives the parameter tree (``layout``) and the
+products a token (``per_token_flops``, ``attention_calls``, and optionally
+``attention_score_flops``), which :func:`family` finds.
 """
 from __future__ import annotations
 
@@ -57,6 +62,17 @@ def load_module(kind: str, name: str, base: Path = HERE) -> ModuleType:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def family(cfg: Dict[str, Any], fn: str, required: bool = True):
+    """The function ``fn`` of the reference module that ``cfg["reference"]``
+    names; None where an optional one is missing."""
+    mod = load_module("reference", cfg["reference"])
+    f = getattr(mod, fn, None)
+    if f is None and required:
+        raise AttributeError(f"{mod.__file__} has no {fn}(): a family's reference module gives layout, "
+                             "per_token_flops, attention_calls and served_logits")
+    return f
 
 
 def arch_config(cfg: Dict[str, Any]):

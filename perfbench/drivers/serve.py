@@ -22,7 +22,8 @@ import time
 from typing import Any, Dict, List
 
 from perfbench import flops as fl
-from perfbench.cells import load_module
+from perfbench.cells import family, load_module
+from perfbench.readings import PREFILL_CALLS, PROMPT_TOKENS, STEPS
 from perfbench.seeds import derive, rng
 from perfbench.weights import make_params
 
@@ -43,11 +44,12 @@ class Probe:
         self.decode_flops = 0.0
         self._orig = (server_mod.prefill, server_mod.decode_step)
         pre, dec = self._orig
+        prefill_flops, decode_flops = fl.counters(cfg)
 
         def prefill(params, arch, batch, cache):
             s = batch["tokens"].shape[1]
             self.prompt_tokens += s
-            self.prefill_flops += fl.prefill(self.cfg, s)
+            self.prefill_flops += prefill_flops(s)
             if self.entries is None or not self.entries.recording:
                 return pre(params, arch, batch, cache)
             self.entries.phase = "prefill"
@@ -57,7 +59,7 @@ class Probe:
         def decode_step(params, arch, tokens, positions, cache):
             for i in self.core.active_slots():
                 self.decode_tokens += 1
-                self.decode_flops += fl.decode(self.cfg, int(self.core._positions[i]))
+                self.decode_flops += decode_flops(int(self.core._positions[i]))
             if self.entries is None or not self.entries.recording:
                 return dec(params, arch, tokens, positions, cache)
             self.entries.phase = "decode"
@@ -146,7 +148,7 @@ def run(ctx) -> Dict[str, Any]:
     steps: List[tuple] = []  # (wall, traced, counters before, counters after)
     backlog: List[tuple] = []  # (time, requests sent and waiting for their first token)
     work_steps = 0
-    work_walls: List[float] = []  # host walls of the unprofiled steps with work
+    work_walls: List[tuple] = []  # (host wall, prompt tokens prefilled) of the unprofiled steps with work
 
     def engine_step():
         nonlocal work_steps
@@ -165,15 +167,16 @@ def run(ctx) -> Dict[str, Any]:
         collect(t1)
         backlog.append((t1, sum(1 for rid in open_reqs if not tracked[rid]["times"])))
         after = probe.snapshot()
-        did = after[2] != before[2] or after[3] != before[3]
+        did = after[STEPS] != before[STEPS] or after[PREFILL_CALLS] != before[PREFILL_CALLS]
         if has_work:
             work_steps += 1
+            tokens = after[PROMPT_TOKENS] - before[PROMPT_TOKENS]
             if not traced:
-                work_walls.append(t1 - t0)
+                work_walls.append((t1 - t0, tokens))
             if did:
                 steps.append((t1 - t0, traced, before, after))
             if sessions is not None:
-                sessions.after_step(t1 - t0)
+                sessions.after_step(t1 - t0, tokens)
         return has_work
 
     while True:
@@ -261,19 +264,19 @@ def judge(ctx, params, cfg, tracked, gen) -> Dict[str, Any]:
     rest = [r for r in done if r is not longest]
     pick = [longest] + [rest[i] for i in gen.permutation(len(rest))[: chk["sample"] - 1]]
     reqs = [(r["prompt"], list(r["req"].out_tokens)) for r in pick]
-    ref = load_module("reference", cfg["reference"])
+    served_logits = family(cfg, "served_logits")
     from perfbench.reference.common import strict_f32
 
     strict_f32()
     t0 = time.perf_counter()
     with torch.no_grad():
-        logits = ref.served_logits(params, cfg, reqs, "f32")
+        logits = served_logits(params, cfg, reqs, "f32")
         served = [torch.tensor(toks, device=lg.device) for lg, (_, toks) in zip(logits, reqs)]
         out = {"wrong_length": wrong_len, "sampled": len(pick), "sampled_tokens": sum(len(t) for t in served)}
         if ctx.control:
             # the control in the program's place: at every position, the token the float8 reference puts first
             out.update(gap_stats(logits, served, "program"))
-            ctl = ref.served_logits(params, cfg, reqs, "fp8")
+            ctl = served_logits(params, cfg, reqs, "fp8")
             served = [c.argmax(-1) for c in ctl]
         out.update(gap_stats(logits, served, "served"))
     out["reference_s"] = time.perf_counter() - t0

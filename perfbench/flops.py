@@ -3,46 +3,41 @@ multiply-add, from a configuration file's sizes.  Norms, activations and
 the embedding lookup are left out (a few operations a value, against
 thousands for a product).
 
-Per token, per layer:
-* attention projections  2 D (H hd + 2 KV hd) + 2 H hd D
-* attention scores       4 H hd v, v = the keys the token sees (causal, within the window)
-* SwiGLU of width F      6 D F
-* MoE                    2 D E (router) + k 6 D F (routed) + 6 D F n_shared (shared)
-and once a token whose logits are computed: 2 D V.
+What depends on the family comes from its reference module
+(``reference/<cfg["reference"]>.py``, found by ``cells.family``):
+* ``per_token_flops(cfg)``   every product of a token but the attention scores and the head
+* ``attention_calls(cfg)``   the self-attention calls a token passes through
+* ``attention_score_flops(cfg, pairs)``, optional: one call's scores over
+  ``pairs`` visible (query, key) pairs; by default 4 H hd a pair
+What every family shares is here: the visible pairs of a causal prompt
+(within a sliding window), and the head, 2 D V a token whose logits are
+computed.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Tuple
+
+from perfbench.cells import family
+from perfbench.reference.common import head_dim
 
 
-def _hd(cfg: Dict) -> int:
-    return cfg.get("head_dim") or cfg["d_model"] // cfg["n_heads"]
-
-
-def attn_proj(cfg: Dict) -> float:
-    d, h, kv, hd = cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"], _hd(cfg)
-    return 2 * d * (h * hd + 2 * kv * hd) + 2 * h * hd * d
-
-
-def attn_scores(cfg: Dict, pairs: float) -> float:
-    return 4 * cfg["n_heads"] * _hd(cfg) * pairs
-
-
-def moe_ffn(cfg: Dict) -> float:
-    d, f = cfg["d_model"], cfg["d_ff"]
-    return 2 * d * cfg["n_experts"] + cfg["top_k"] * 6 * d * f + cfg["n_shared_experts"] * 6 * d * f
+def attn_scores(cfg: Dict) -> Callable[[float], float]:
+    """One attention call's scores as a function of its visible pairs."""
+    own = family(cfg, "attention_score_flops", required=False)
+    if own is not None:
+        return lambda pairs: own(cfg, pairs)
+    per_pair = 4 * cfg["n_heads"] * head_dim(cfg)
+    return lambda pairs: per_pair * pairs
 
 
 def attention_layers(cfg: Dict) -> int:
     """Self-attention calls a token passes through."""
-    return cfg["n_layers"]
+    return family(cfg, "attention_calls")(cfg)
 
 
 def per_token(cfg: Dict) -> float:
     """Everything but the attention scores and the head."""
-    if cfg["family"] == "moe":
-        return cfg["n_layers"] * (attn_proj(cfg) + moe_ffn(cfg))
-    raise ValueError(f"no FLOP count for the family {cfg['family']!r}")
+    return family(cfg, "per_token_flops")(cfg)
 
 
 def window(cfg: Dict) -> int:
@@ -56,16 +51,29 @@ def visible_pairs(s: int, win: int = 0) -> int:
     return win * (win + 1) // 2 + (s - win) * win
 
 
+def counters(cfg: Dict) -> Tuple[Callable[[int], float], Callable[[int], float]]:
+    """``(prefill(s), decode(position))`` of ``cfg``, its family's functions
+    looked up once: a prompt of s tokens with the logits of its last
+    position only, and one token at ``position`` (0-based), which sees
+    position + 1 keys."""
+    per, calls, scores, win = per_token(cfg), attention_layers(cfg), attn_scores(cfg), window(cfg)
+    head = 2 * cfg["d_model"] * cfg["vocab_size"]
+
+    def prefill(s: int) -> float:
+        return s * per + calls * scores(visible_pairs(s, win)) + head
+
+    def decode(position: int) -> float:
+        seen = min(position + 1, win) if win else position + 1
+        return per + calls * scores(seen) + head
+
+    return prefill, decode
+
+
 def prefill(cfg: Dict, s: int) -> float:
     """A prompt of s tokens, logits of its last position only."""
-    pairs = visible_pairs(s, window(cfg))
-    return s * per_token(cfg) + attention_layers(cfg) * attn_scores(cfg, pairs) + 2 * cfg["d_model"] * cfg["vocab_size"]
+    return counters(cfg)[0](s)
 
 
 def decode(cfg: Dict, position: int) -> float:
     """One token at ``position`` (0-based), which sees position + 1 keys."""
-    seen = position + 1
-    if window(cfg):
-        seen = min(seen, window(cfg))
-    return per_token(cfg) + attention_layers(cfg) * attn_scores(cfg, seen) + 2 * cfg["d_model"] * cfg["vocab_size"]
-
+    return counters(cfg)[1](position)

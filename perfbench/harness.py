@@ -16,7 +16,7 @@ from types import SimpleNamespace
 from typing import Any, Dict, List
 
 from perfbench.cells import HERE, arch_config, benchmark_entries, load_cell, load_module, read_json
-from perfbench.readings import summaries
+from perfbench.readings import idle_by_kind, summaries
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro", "benchmarks")
 
@@ -131,7 +131,8 @@ def execute(ctx, cell: Dict[str, Any], wanted: List[Dict[str, Any]]) -> Dict[str
     if tr is not None:
         print(f"perfbench: profiler sessions {tr['sessions']}, complete {tr['complete']}, dropped {len(tr['dropped'])}: "
               f"{json.dumps(tr['dropped'])[:2000]}; mean host wall of a profiled step {tr['step_walls']} s, "
-              f"of an unprofiled step with work {sum(run['work_walls']) / max(1, len(run['work_walls']))} s", file=sys.stderr)
+              f"of an unprofiled step with work {sum(w for w, _ in run['work_walls']) / max(1, len(run['work_walls']))} s; "
+              f"idle by step kind {json.dumps(idle_by_kind(run))}", file=sys.stderr)
         if not all(tr["complete"].values()):
             raise RuntimeError(f"a kind of profiler session has no complete session ({tr['complete']}): "
                                "its device metrics cannot be read")

@@ -1,8 +1,9 @@
 """Percent of an engine step's host wall in which no device operation ran,
 counted only over steps in which the engine held an active slot or a
-request (gaps between arrivals do not count): the device-busy seconds a
-step in complete card-only profiler sessions over the mean wall of the
-unprofiled steps with work (``readings.idle_share``)."""
+request (gaps between arrivals do not count): the busy seconds of complete
+card-only profiler sessions over the walls their steps take unprofiled,
+admitting and plain steps each held against their own kind and weighted as
+the window's unprofiled steps hold them (``readings.idle_share``)."""
 from perfbench.readings import idle_share
 
 

@@ -2,7 +2,7 @@
 steps that ran outside the profiler's sessions."""
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 # indices into a step's counter snapshot (drivers/serve.py Probe.snapshot)
 PREFILL_S, DECODE_S, STEPS, PREFILL_CALLS, PROMPT_TOKENS, DECODE_TOKENS, PREFILL_FLOPS, DECODE_FLOPS = range(8)
@@ -73,14 +73,64 @@ def roofline(run: Dict[str, Any], key: str) -> Optional[float]:
     return 100.0 * acc[0] / acc[1]
 
 
-def idle_share(run: Dict[str, Any]) -> Optional[float]:
-    """Percent of a step's host wall in which no device operation ran: the
-    device-busy seconds a step of the complete card-only sessions over the
-    mean wall of the unprofiled steps with work.  The profiler slows the
-    host, so the profiled steps' own walls would read the card idler."""
+def _line(points: List[tuple]) -> Callable[[float], float]:
+    """The least-squares line of wall against prompt tokens over ``(wall,
+    tokens)`` points; their mean where the tokens do not vary."""
+    n = len(points)
+    mw, mt = sum(w for w, _ in points) / n, sum(t for _, t in points) / n
+    var = sum((t - mt) ** 2 for _, t in points)
+    slope = sum((t - mt) * (w - mw) for w, t in points) / var if var else 0.0
+    return lambda t: mw + slope * (t - mt)
+
+
+def idle_by_kind(run: Dict[str, Any]) -> Optional[Dict[str, Dict[str, float]]]:
+    """The pieces of :func:`idle_share` by step kind (``admitting``: the step
+    prefilled a prompt; ``plain``: every other step with work).  Of the
+    window's unprofiled work steps: their count and summed wall.  Of the
+    complete card-only sessions of the kind (a session that caught an
+    admitting step is ``admitting``): their count and steps, busy seconds, and the
+    walls their steps take unprofiled, each step by its own kind's line of
+    wall against prompt tokens (the prompts a session catches may be longer
+    or shorter than the window's)."""
     tr = run.get("trace")
     walls = run.get("work_walls")
-    if not tr or not tr["device_steps"] or not walls:
+    if not tr or not tr.get("device_sessions") or not walls:
         return None
-    busy = tr["busy_s"] / tr["device_steps"]
-    return 100.0 * (1.0 - busy / (sum(walls) / len(walls)))
+    kind = lambda tokens: "admitting" if tokens else "plain"  # noqa: E731
+    steps: Dict[str, List[tuple]] = {}
+    for w, t in walls:
+        steps.setdefault(kind(t), []).append((w, t))
+    line = {k: _line(v) for k, v in steps.items()}
+    out = {k: {"steps": len(v), "wall_s": sum(w for w, _ in v), "sessions": 0, "session_steps": 0, "busy_s": 0.0,
+               "expected_s": 0.0} for k, v in steps.items()}
+    for busy, tokens in tr["device_sessions"]:
+        if any(kind(t) not in line for t in tokens):
+            continue  # a step of a kind no unprofiled step has: nothing to hold it against
+        k = out[kind(sum(tokens))]
+        k["sessions"] += 1
+        k["session_steps"] += len(tokens)
+        k["busy_s"] += busy
+        k["expected_s"] += sum(line[kind(t)](t) for t in tokens)
+    return out
+
+
+def idle_share(run: Dict[str, Any]) -> Optional[float]:
+    """Percent of the window's unprofiled work-step wall in which no device
+    operation ran.  Each kind's busy share is its card-only sessions' busy
+    seconds over the walls their steps take unprofiled (a kind no session
+    caught takes that of all sessions); the kinds are weighted by their
+    unprofiled work steps' summed walls, so by their share of the steps
+    times their mean wall.  The profiler slows the host, so the profiled
+    steps' own walls would read the card idler; and the sessions catch
+    admitting and plain steps in other shares than the window holds them,
+    so one ratio over all steps would hold a prefill's busy time against
+    decode steps' walls, and can read below 0."""
+    kinds = idle_by_kind(run)
+    if not kinds:
+        return None
+    caught = [k for k in kinds.values() if k["sessions"]]
+    if not caught:
+        return None
+    pooled = sum(k["busy_s"] for k in caught) / sum(k["expected_s"] for k in caught)
+    held = sum(k["wall_s"] * (k["busy_s"] / k["expected_s"] if k["sessions"] else pooled) for k in kinds.values())
+    return 100.0 * (1.0 - held / sum(k["wall_s"] for k in kinds.values()))

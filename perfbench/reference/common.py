@@ -6,6 +6,11 @@ which in the control's mode ``"fp8"`` rounds both operands to float8
 weights) before the float32 product: the reference computed one precision
 below the configuration's bf16.  TF32 is off for the whole process that
 imports this module's :func:`strict_f32`.
+
+Beside each block, the leaves of its parameters (for a family's
+``layout``) and its products' operations (for ``per_token_flops``): a leaf
+is ``(shape, dtype, init)``, drawn by ``perfbench/weights.py``, with dtype
+``"model"`` for the configuration's own type.
 """
 from __future__ import annotations
 
@@ -53,12 +58,39 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def normal(shape, fan_in, dtype="model"):
+    """A leaf drawn from a normal of scale 1/sqrt(fan_in)."""
+    return (tuple(shape), dtype, ("normal", 1.0 / math.sqrt(fan_in)))
+
+
+def ones(shape):
+    return (tuple(shape), "model", ("const", 1.0))
+
+
+def head_dim(cfg) -> int:
+    return cfg.get("head_dim") or cfg["d_model"] // cfg["n_heads"]
+
+
+def attention_layout(cfg, lead=()):
+    """GQA projections, in the port's (D, H, hd) and (H, hd, D) layout."""
+    d, h, kv, hd = cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"], head_dim(cfg)
+    return {
+        "wq": normal(lead + (d, h, hd), d), "wk": normal(lead + (d, kv, hd), d),
+        "wv": normal(lead + (d, kv, hd), d), "wo": normal(lead + (h, hd, d), h * hd),
+    }
+
+
+def attention_proj_flops(cfg) -> float:
+    """The four projections of :func:`attention`, a token: 2 D (H hd + 2 KV hd) + 2 H hd D."""
+    d, h, kv, hd = cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"], head_dim(cfg)
+    return 2 * d * (h * hd + 2 * kv * hd) + 2 * h * hd * d
+
+
 def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, window: int, mode: str) -> torch.Tensor:
     """Causal GQA self-attention over one sequence x (S, D), keys within
     ``window`` positions when it is > 0; query head h reads kv head h // (H / KV)."""
     s, d = x.shape
-    h, kv = cfg["n_heads"], cfg["n_kv_heads"]
-    hd = cfg.get("head_dim") or d // h
+    h, kv, hd = cfg["n_heads"], cfg["n_kv_heads"], head_dim(cfg)
     q = linear(x, p["wq"].reshape(d, h * hd), mode).view(s, h, hd)
     k = linear(x, p["wk"].reshape(d, kv * hd), mode).view(s, kv, hd)
     v = linear(x, p["wv"].reshape(d, kv * hd), mode).view(s, kv, hd)
@@ -75,6 +107,15 @@ def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, window: int, mod
         pr = torch.softmax(sc.masked_fill(~visible, -math.inf), dim=-1)
         out[:, h0:h0 + 4] = torch.einsum("hqs,shk->qhk", pr, v[:, h0:h0 + 4])
     return linear(out.reshape(s, h * hd), p["wo"].reshape(h * hd, d), mode)
+
+
+def swiglu_layout(d: int, f: int, lead=()):
+    return {"w_up": normal(lead + (d, f), d), "w_gate": normal(lead + (d, f), d), "w_down": normal(lead + (f, d), f)}
+
+
+def swiglu_flops(d: int, f: int) -> float:
+    """The three products of :func:`swiglu` of width f, a token: 6 D F."""
+    return 6 * d * f
 
 
 def swiglu(p: Dict[str, torch.Tensor], x: torch.Tensor, mode: str) -> torch.Tensor:
@@ -104,6 +145,12 @@ def served_positions(requests: Sequence[Tuple[List[int], List[int]]]):
         ids = list(prompt) + list(served[:-1])
         out.append((ids, len(prompt), list(range(len(prompt) - 1, len(ids)))))
     return out
+
+
+def head_layout(cfg):
+    """The embedding (scale 1), the final norm and the untied head that :func:`head_logits` reads."""
+    d, v = cfg["d_model"], cfg["vocab_size"]
+    return {"embed": normal((v, d), 1), "ln_f": ones((d,)), "lm_head": normal((v, d), d)}
 
 
 def head_logits(params, cfg, h: torch.Tensor, mode: str) -> torch.Tensor:

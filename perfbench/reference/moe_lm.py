@@ -19,6 +19,11 @@ published model in two ways the reference must follow:
 The layers run one at a time over every request, each layer's weights
 converted to float32 once (the float32 model does not fit beside the bf16
 weights).
+
+The family's parameter tree (:func:`layout`) and its products a token
+(:func:`per_token_flops`, :func:`attention_calls`) sit beside the forward
+pass that reads them; the benchmark finds them by the configuration's
+``reference`` key.
 """
 from __future__ import annotations
 
@@ -28,7 +33,38 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import attention, head_logits, layer, rms_norm, served_positions, swiglu
+from .common import (attention, attention_layout, attention_proj_flops, head_layout, head_logits, layer, normal,
+                     ones, rms_norm, served_positions, swiglu, swiglu_flops, swiglu_layout)
+
+
+def layout(cfg):
+    """Every layer stacked on a leading L: pre-norm attention, then the MoE
+    FFN (its float32 router, the routed experts, the shared experts as one
+    SwiGLU of width ``d_ff * n_shared_experts``)."""
+    d, L = cfg["d_model"], cfg["n_layers"]
+    e, f, ns = cfg["n_experts"], cfg["d_ff"], cfg["n_shared_experts"]
+    lead = (L,)
+    moe = {
+        "router": normal(lead + (d, e), d, "float32"),
+        "w_up": normal(lead + (e, d, f), d), "w_gate": normal(lead + (e, d, f), d),
+        "w_down": normal(lead + (e, f, d), f),
+    }
+    if ns:
+        moe["shared"] = swiglu_layout(d, f * ns, lead)
+    return {**head_layout(cfg),
+            "layers": {"ln1": ones(lead + (d,)), "attn": attention_layout(cfg, lead), "ln2": ones(lead + (d,)), "moe": moe}}
+
+
+def per_token_flops(cfg) -> float:
+    """A layer: the attention projections, the router 2 D E, k routed and
+    the shared SwiGLU experts."""
+    d, f = cfg["d_model"], cfg["d_ff"]
+    moe = 2 * d * cfg["n_experts"] + (cfg["top_k"] + cfg["n_shared_experts"]) * swiglu_flops(d, f)
+    return cfg["n_layers"] * (attention_proj_flops(cfg) + moe)
+
+
+def attention_calls(cfg) -> int:
+    return cfg["n_layers"]
 
 
 def capacity(tokens: int, cfg) -> int:

@@ -3,9 +3,14 @@ finding cells by name, and what the benchmark imports."""
 from __future__ import annotations
 
 import ast
+import dataclasses
+import hashlib
 import json
 import math
+import os
 import shutil
+import subprocess
+import sys
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -14,12 +19,13 @@ import pytest
 import torch
 from torch.autograd import DeviceType
 
-from perfbench.tests.helpers import HERE, ROOT
+from perfbench.tests.helpers import HERE, ROOT, smoke_cfg
 
 from perfbench import flops, stats
-from perfbench.cells import load_cell, load_module, read_json
+from perfbench.cells import benchmark_entries, load_cell, load_module, read_json
 from perfbench.seeds import rng
 from perfbench.trace import Sessions, read_session
+from perfbench.weights import make_params
 
 CELLS = ["deepseek-moe-16b.decode", "deepseek-moe-16b.longprompt"]
 
@@ -147,6 +153,49 @@ def test_moe_flops_by_hand():
     assert abs(flops.per_token(c) / 2 - 2.8e9 + 2 * d * V / 2) / 2.8e9 < 0.1
 
 
+# make_params of deepseek-moe-16b at the smoke sizes, seed 1234: SHA-256 of
+# every leaf's bytes in the layout's key order, as drawn before the family's
+# layout moved into reference/moe_lm.py
+DEEPSEEK_SMOKE_DIGESTS = {
+    "float32": "0c3f9bb19fba59a27f815430e1a320221fb60af839dd494a914becaf7c0d67e5",
+    "bfloat16": "9d0a6375b576a6304d27b62a8d9ed27f0803c745e7a7295d7008ecdb799db224",
+}
+
+
+DEEPSEEK_KEYS = ["embed", "ln_f", "lm_head", "layers.ln1", "layers.attn.wq", "layers.attn.wk", "layers.attn.wv",
+                 "layers.attn.wo", "layers.ln2", "layers.moe.router", "layers.moe.w_up", "layers.moe.w_gate",
+                 "layers.moe.w_down", "layers.moe.shared.w_up", "layers.moe.shared.w_gate", "layers.moe.shared.w_down"]
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        yield from (_leaves(v, f"{prefix}{k}.") if isinstance(v, dict) else [(prefix + k, v)])
+
+
+@pytest.mark.parametrize("dtype", sorted(DEEPSEEK_SMOKE_DIGESTS))
+def test_deepseek_weights_are_drawn_bit_for_bit_as_before(dtype):
+    leaves = list(_leaves(make_params(smoke_cfg("deepseek-moe-16b", dtype), 1234, "cpu")))
+    assert [k for k, _ in leaves] == DEEPSEEK_KEYS  # the order the leaves are drawn and hashed in
+    h = hashlib.sha256()
+    for _, t in leaves:
+        h.update(t.contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    assert h.hexdigest() == DEEPSEEK_SMOKE_DIGESTS[dtype]
+
+
+def test_a_reference_without_layout_names_its_file(tmp_path, monkeypatch):
+    from perfbench import cells
+
+    (tmp_path / "reference").mkdir()
+    (tmp_path / "reference" / "no_layout.py").write_text("def served_logits(params, cfg, requests, mode):\n    return []\n")
+    real = cells.load_module
+    monkeypatch.setattr(cells, "load_module", lambda kind, name: real(kind, name, tmp_path))
+    cfg = dict(_cfg("deepseek-moe-16b"), reference="no_layout")
+    with pytest.raises(AttributeError, match=r"reference/no_layout\.py has no layout\(\)"):
+        make_params(cfg, 1, "cpu")
+    with pytest.raises(AttributeError, match=r"reference/no_layout\.py has no per_token_flops\(\)"):
+        flops.per_token(cfg)
+
+
 def test_visible_pairs_by_hand():
     assert flops.visible_pairs(10, 4) == 4 * 5 // 2 + 6 * 4
     assert flops.visible_pairs(10) == 55
@@ -218,7 +267,7 @@ def _session(gmm_records):
     return {"prof": _Prof(ev), "kind": "ranges", "launches": {"flash_attention": 0, "ssd_scan": 0, "moe_gmm": 3, "grad_pack": 0},
             "calls": [("expert_ffn_matmul", "decode", {"e": 1, "r": 1, "d": 1000, "f": 1000, "rows": [1],
                                                        "x_ptr": 0, "down": False, "dtype": "bfloat16"})],
-            "walls": [1000e-6]}
+            "walls": [1000e-6], "tokens": [0]}
 
 
 def test_session_that_lost_records_is_dropped():
@@ -230,7 +279,8 @@ def test_session_that_lost_records_is_dropped():
     assert out["sessions"] == 3 and out["complete"] == {"device": 1, "ranges": 1}
     assert out["dropped"][0]["records_vs_launches"] == {"moe_gmm": (2, 3)}
     assert out["busy_s"] == pytest.approx((40 + 15) / 1e6)  # from the device session alone
-    assert out["window_s"] == pytest.approx(1000e-6) and out["device_steps"] == 1
+    assert out["window_s"] == pytest.approx(1000e-6)
+    assert out["device_sessions"] == [(pytest.approx(55e-6), [0])]  # one step, no prompt prefilled
     bound = max(2 * 1000 * 1000 / peaks["bfloat16_flops"], 2 * (1000 * 1000 + 2000) / peaks["hbm_bytes_per_s"])
     assert out["entries"]["expert_ffn_matmul.decode"][:2] == pytest.approx([bound, 15e-6])  # the kernels inside the span
 
@@ -240,10 +290,39 @@ def test_idle_share_divides_by_the_unprofiled_walls():
     steps' mean wall, not over the profiled steps' own (slower) walls."""
     from perfbench.readings import idle_share
 
-    run = {"trace": {"busy_s": 0.06, "device_steps": 2, "window_s": 0.5}, "work_walls": [0.09, 0.11]}
+    run = {"trace": {"busy_s": 0.06, "window_s": 0.5, "device_sessions": [(0.06, [0, 0])]},
+           "work_walls": [(0.09, 0), (0.11, 0)]}
     assert idle_share(run) == pytest.approx(100 * (1 - 0.03 / 0.1))
     assert idle_share(dict(run, work_walls=[])) is None
-    assert idle_share(dict(run, trace=dict(run["trace"], device_steps=0))) is None
+    assert idle_share(dict(run, trace=dict(run["trace"], device_sessions=[]))) is None
+
+
+def test_idle_share_holds_admitting_steps_against_their_own_walls():
+    """Card-only sessions that caught only admitting steps (a prefill each),
+    in a window of mostly plain decode steps: each session's busy seconds
+    are held against the walls of its own steps' kinds (an admitting step's
+    by the line of unprofiled admitting walls against prompt tokens), not
+    against the mean of all steps, and the kinds are weighted by their
+    unprofiled walls."""
+    from perfbench.readings import idle_share
+
+    plain, slope = 0.035, (0.20 - 0.12) / 1000  # unprofiled: 18 plain steps; admissions of 1000 and 2000 tokens
+    walls = [(plain, 0)] * 18 + [(0.12, 1000), (0.20, 2000)]
+    sessions = [(0.16, [1500, 0]), (0.20, [2500])]  # an admission and the plain step after it; a longer admission
+    run = {"trace": {"device_sessions": sessions}, "work_walls": walls}
+    expected = [0.16 + plain, 0.16 + slope * 1000]
+    rho_admitting = (0.16 + 0.20) / sum(expected)
+    got = idle_share(run)
+    assert 0 <= got <= 100
+    assert got == pytest.approx(100 * (1 - rho_admitting))  # no plain session: plain steps take the same share
+    busy_a_step = (0.16 + 0.20) / 3
+    assert 100 * (1 - busy_a_step / (sum(w for w, _ in walls) / len(walls))) < -100  # one ratio over all steps
+    run["trace"]["device_sessions"] = sessions + [(0.063, [0, 0])]
+    rho_plain = 0.063 / (2 * plain)
+    held = 18 * plain * rho_plain + (0.12 + 0.20) * rho_admitting
+    got = idle_share(run)
+    assert 0 <= got <= 100
+    assert got == pytest.approx(100 * (1 - held / (18 * plain + 0.32)))
 
 
 def test_idle_gaps_are_labelled_by_the_host_range():
@@ -268,6 +347,144 @@ def test_a_cell_added_as_new_files_is_found(tmp_path):
     got = load_cell("deepseek-moe-16b.longprompt-bursty", base=copy)
     assert got["mix"]["name"] == "longprompt-bursty" and got["cfg"]["name"] == "deepseek-moe-16b" and got["rate"] == 2.0
     assert all(p.read_bytes() == b for p, b in before.items())
+
+
+# the reference module of a dense decoder family, written into a copy of the benchmark
+DENSE_LM = '''"""Plain float32 reference of the port's dense decoder: every layer
+pre-norm causal self-attention (RoPE, split halves), then a pre-norm SwiGLU FFN."""
+import torch
+
+from .common import (attention, attention_layout, attention_proj_flops, head_layout, head_logits, layer, ones,
+                     rms_norm, served_positions, swiglu, swiglu_flops, swiglu_layout)
+
+
+def layout(cfg):
+    d, lead = cfg["d_model"], (cfg["n_layers"],)
+    return {**head_layout(cfg), "layers": {"ln1": ones(lead + (d,)), "attn": attention_layout(cfg, lead),
+                                           "ln2": ones(lead + (d,)), "ffn": swiglu_layout(d, cfg["d_ff"], lead)}}
+
+
+def per_token_flops(cfg):
+    return cfg["n_layers"] * (attention_proj_flops(cfg) + swiglu_flops(cfg["d_model"], cfg["d_ff"]))
+
+
+def attention_calls(cfg):
+    return cfg["n_layers"]
+
+
+def served_logits(params, cfg, requests, mode="f32"):
+    out = []
+    for ids, _, pos in served_positions(requests):
+        h = params["embed"][torch.tensor(ids, device=params["embed"].device)].float()
+        for i in range(cfg["n_layers"]):
+            lp = layer(params["layers"], i)
+            h = h + attention(lp["attn"], rms_norm(h, lp["ln1"], cfg["norm_eps"]), cfg, 0, mode)
+            h = h + swiglu(lp["ffn"], rms_norm(h, lp["ln2"], cfg["norm_eps"]), mode)
+        out.append(head_logits(params, cfg, h[pos], mode))
+    return out
+'''
+
+DENSE_SIZES = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab_size",
+               "attn_kind", "window", "rope_theta", "norm_eps", "tie_embeddings", "gated_ffn")
+
+
+def _add_dense_family(copy: Path) -> str:
+    """A dense decoder at the port's smoke sizes, added to the copy as new
+    files only: its configuration, its reference module, a mix that reuses
+    the decode mix at short lengths, and a cell.  Returns the cell's name."""
+    from repro_torch.configs import get_smoke_config
+
+    smoke = dataclasses.asdict(get_smoke_config("tinyllama-1.1b"))
+    cfg = {"name": "tinyllama-smoke", "source": "https://arxiv.org/abs/2401.02385", "port_arch": "tinyllama-1.1b",
+           "reference": "dense_lm", "dtype": "float32", "reduced": [], **{k: smoke[k] for k in DENSE_SIZES}}
+    mix = dict(read_json(copy / "traffic" / "decode.json"), name="decode-short",
+               prompt={"dist": "loguniform", "min": 4, "max": 20}, output={"dist": "loguniform", "min": 6, "max": 16})
+    cell = {"name": "tinyllama-smoke.decode", "config": "tinyllama-smoke", "traffic": "decode-short", "driver": "serve",
+            "chips": 1, "serve": {"slots": 8, "context": 48, "max_prefill": 24, "transport": "collective"},
+            "trace": {"every": 4, "length": 2}, "check": {"sample": 8, "served_mean_gap": 1e-3},
+            "why": "a dense decoder family added as new files"}
+    (copy / "reference" / "dense_lm.py").write_text(DENSE_LM)
+    (copy / "configs" / "tinyllama-smoke.json").write_text(json.dumps(cfg))
+    (copy / "traffic" / "decode-short.json").write_text(json.dumps(mix))
+    (copy / "workloads" / "tinyllama-smoke.decode.json").write_text(json.dumps(cell))
+    return cell["name"]
+
+
+# run in a process of its own whose ``perfbench`` is the copy (argv: the copy, the cell, the metrics wanted)
+RUN_COPY = '''
+import importlib.util, json, sys, time
+from pathlib import Path
+from types import SimpleNamespace
+
+import torch
+
+copy, name, wanted = Path(sys.argv[1]), sys.argv[2], json.loads(sys.argv[3])
+loaded = []  # every file cells.load_module loads (it names the module perfbench.<kind>.<name>)
+real = importlib.util.spec_from_file_location
+
+
+def spy(mod, path, *a, **k):
+    if mod.startswith("perfbench."):
+        loaded.append(str(path))
+    return real(mod, path, *a, **k)
+
+
+importlib.util.spec_from_file_location = spy
+from perfbench import flops, harness
+from perfbench.cells import load_cell, load_module, read_json
+
+cell = load_cell(name)
+peaks = read_json(copy / "peaks.json")["NVIDIA H100 80GB HBM3"]
+out = {"runs": []}
+for control in (0, 1):
+    torch.manual_seed(0)
+    args = SimpleNamespace(seed=2**31 + 21, seconds=1.5, trace=0, control=control)
+    res = harness.execute(harness.make_ctx(args, cell, "cpu", time.perf_counter(), peaks), cell, wanted)
+    out["runs"].append({k: res[k] for k in ("correct", "attempted", "failed", "metrics", "check")})
+from torch.profiler import ProfilerActivity
+
+prof = torch.profiler.profile  # a traced run: the card-only sessions made host sessions on the CPU
+torch.profiler.profile = lambda activities: prof(activities=sorted(set(activities) | {ProfilerActivity.CPU}, key=str))
+args = SimpleNamespace(seed=2**31 + 22, seconds=1.0, trace=1, control=0)
+run = load_module("drivers", "serve").run(harness.make_ctx(args, cell, "cpu", time.perf_counter(), peaks))
+out.update(sessions=run["trace"]["sessions"], loaded=loaded, per_token=flops.per_token(cell["cfg"]),
+           modules={m: getattr(mod, "__file__", None) for m, mod in sys.modules.items() if m.split(".")[0] == "perfbench"})
+print(json.dumps(out))
+'''
+
+
+def test_a_family_added_as_new_files_runs(tmp_path):
+    """A copy of the benchmark with a dense decoder family added as new files
+    only, run in a process whose ``perfbench`` is the copy: whole CPU runs of
+    its cell through the harness's own functions come out correct with the
+    cell's end-to-end metrics, and not correct with the control; every
+    module, by name or by import, comes from the copy."""
+    copy = tmp_path / "perfbench"
+    shutil.copytree(HERE, copy, ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    before = {p: p.read_bytes() for p in copy.rglob("*") if p.is_file()}
+    name = _add_dense_family(copy)
+    wanted = [m for m in benchmark_entries("deepseek-moe-16b.decode")["end_to_end"]
+              if m["name"] in ("tokens_per_s", "itl_p95_ms", "setup_s")]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), str(ROOT / "src")]))
+    proc = subprocess.run([sys.executable, "-c", RUN_COPY, str(copy), name, json.dumps(wanted)], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for control, res in enumerate(out["runs"]):
+        assert res["correct"] is (not control), res["check"]
+        assert set(res["metrics"]) == {"tokens_per_s", "itl_p95_ms", "setup_s"}
+        assert res["attempted"] > 0 and res["failed"] == 0
+    assert out["runs"][1]["check"]["served_mean_gap"]["value"] > 1e-3
+    assert out["sessions"] > 0
+    loaded = [Path(p) for p in out["loaded"]]
+    for path in ("reference/dense_lm.py", "drivers/serve.py", "traffic/closed_loop.py", "metrics/tokens_per_s.py",
+                 "rooflines/attention.py"):
+        assert copy / path in loaded, path
+    assert all(p.is_relative_to(copy) for p in loaded), [p for p in loaded if not p.is_relative_to(copy)]
+    assert "perfbench.reference.common" in out["modules"]  # imported by dense_lm.py's relative import
+    assert all(Path(f).is_relative_to(copy) for f in out["modules"].values() if f), out["modules"]
+    assert all(p.read_bytes() == b for p, b in before.items())
+    assert out["per_token"] == 2 * (2 * 64 * (64 + 2 * 2 * 16) + 2 * 64 * 64 + 6 * 64 * 128)
 
 
 def test_benchmark_json_names_match_the_files():

@@ -134,11 +134,14 @@ class Sessions:
         self.entries.recording = self.kind == "ranges"
         self._steps = 0
         self._walls: List[float] = []
+        self._tokens: List[int] = []
 
-    def after_step(self, wall: float) -> None:
+    def after_step(self, wall: float, prompt_tokens: int) -> None:
+        """The step just run: its host wall and the prompt tokens it prefilled."""
         if self._prof is None:
             return
         self._walls.append(wall)
+        self._tokens.append(prompt_tokens)
         self._steps += 1
         if self._steps >= self.length:
             self.stop()
@@ -155,16 +158,19 @@ class Sessions:
         end = launch_counts(self.kernels)
         self._last_end = self._work_steps + self._steps
         self.raw.append({"prof": self._prof, "kind": self.kind, "launches": {k: end[k] - self._start_counts[k] for k in end},
-                         "calls": self.entries.calls[self._calls0:], "walls": list(self._walls)})
+                         "calls": self.entries.calls[self._calls0:], "walls": list(self._walls),
+                         "tokens": list(self._tokens)})
         self._prof = None
 
     def summarize(self, peaks: Dict[str, float]) -> Dict[str, Any]:
         """Read every session: keep the complete ones.  Returns the dropped
-        ones, the device's busy and window seconds (``device`` sessions),
-        each entry's bound and device seconds by phase, the device
-        operations and the idle gaps by host range (``ranges`` sessions),
-        and the mean host wall of a profiled step of each kind."""
-        out = {"sessions": len(self.raw), "dropped": [], "busy_s": 0.0, "window_s": 0.0, "device_steps": 0,
+        ones, the device's busy and window seconds (``device`` sessions; each
+        such session's busy seconds beside its steps' prompt tokens in
+        ``device_sessions``), each entry's bound and device seconds by
+        phase, the device operations and the idle gaps by host range
+        (``ranges`` sessions), and the mean host wall of a profiled step of
+        each kind."""
+        out = {"sessions": len(self.raw), "dropped": [], "busy_s": 0.0, "window_s": 0.0, "device_sessions": [],
                "entries": {}, "ops": {}, "gaps": {}, "step_walls": {}}
         for i, s in enumerate(self.raw):
             read = read_session(s["prof"], self.kernels)
@@ -179,7 +185,7 @@ class Sessions:
             if s["kind"] == "device":
                 out["busy_s"] += read["busy_s"]
                 out["window_s"] += sum(s["walls"])
-                out["device_steps"] += len(s["walls"])
+                out["device_sessions"].append((read["busy_s"], s["tokens"]))
                 continue
             for name, sec in read["ops"].items():
                 out["ops"][name] = out["ops"].get(name, 0.0) + sec
