@@ -15,7 +15,7 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
-__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "cell_is_applicable"]
+__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "cell_is_applicable", "zamba2_layout", "shared_layers", "ssm_groups"]
 
 
 @dataclass(frozen=True)
@@ -54,7 +54,24 @@ class ArchConfig:
     ssm_expand: int = 2
     ssm_conv: int = 4
     ssm_chunk: int = 64  # SSD chunk length
+    ssm_groups: int = 1  # groups of B/C (and of the published Zamba2 mixer norm)
     attn_every: int = 0  # hybrid: shared attention block every k layers
+
+    # hybrid shared block: "residual" is the port's pre-norm residual block
+    # on h after every ``attn_every``-th layer; "zamba2" is published Zamba2
+    # (arXiv:2411.15242, transformers' modeling_zamba2.py): the block reads
+    # concat(h, x0), 2 * d_model wide, runs before each layer of
+    # ``hybrid_layer_ids``, has LoRA adapters of ``adapter_rank`` per
+    # invocation (on gate-up where ``use_shared_mlp_adapter``, on q/k/v
+    # where ``use_shared_attention_adapter``), RoPE, a GeGLU MLP, and a
+    # per-invocation linear whose output is added to the next Mamba layer's
+    # input; its Mamba layers end in the grouped gated norm.  Every other
+    # family ignores these fields.
+    hybrid_layout: str = "residual"
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    adapter_rank: int = 0
+    use_shared_mlp_adapter: bool = False
+    use_shared_attention_adapter: bool = False
 
     # MoE
     n_experts: int = 0
@@ -76,6 +93,10 @@ class ArchConfig:
     tie_embeddings: bool = False
     gated_ffn: bool = True  # SwiGLU (3 mats) vs classic GELU (2 mats)
     dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        # a configuration file gives the layer ids as a JSON list
+        object.__setattr__(self, "hybrid_layer_ids", tuple(self.hybrid_layer_ids))
 
     # -- derived -------------------------------------------------------------
     @property
@@ -118,6 +139,29 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
+# The port's functions also take the JAX package's ArchConfig (the parity
+# tests hand it over), which has none of the fields the port added: read
+# those through these functions.
+def zamba2_layout(cfg) -> bool:
+    """Whether ``cfg`` is a hybrid in published Zamba2's layout."""
+    return cfg.family == "hybrid" and getattr(cfg, "hybrid_layout", "residual") == "zamba2"
+
+
+def shared_layers(cfg) -> Tuple[int, ...]:
+    """The layers the hybrid's shared block runs at, in order: after every
+    ``attn_every``-th layer, or before each of ``hybrid_layer_ids`` in the
+    zamba2 layout."""
+    if cfg.family != "hybrid":
+        return ()
+    if zamba2_layout(cfg):
+        return cfg.hybrid_layer_ids
+    return tuple(range(0, cfg.n_layers, cfg.attn_every))
+
+
+def ssm_groups(cfg) -> int:
+    return getattr(cfg, "ssm_groups", 1)
+
+
 def _attn_params(cfg: ArchConfig) -> int:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     if cfg.attn_kind == "mla":
@@ -142,7 +186,7 @@ def _ssm_params(cfg: ArchConfig) -> int:
     d = cfg.d_model
     d_in = cfg.ssm_expand * d
     n_heads = d_in // cfg.ssm_head_dim
-    n_groups = 1
+    n_groups = ssm_groups(cfg)
     conv_dim = d_in + 2 * n_groups * cfg.ssm_state
     p = d * (2 * d_in + 2 * n_groups * cfg.ssm_state + n_heads)  # in_proj
     p += conv_dim * cfg.ssm_conv  # depthwise conv
@@ -156,6 +200,10 @@ def _layer_params(cfg: ArchConfig, layer: int) -> int:
     norm = 2 * d
     if cfg.family == "ssm":
         return _ssm_params(cfg) + norm
+    if zamba2_layout(cfg):  # in_proj, conv weight and bias, A_log, D, dt_bias, the mixer norm, out_proj, ln1
+        d_in, n_heads = cfg.ssm_expand * d, cfg.ssm_expand * d // cfg.ssm_head_dim
+        conv_dim = d_in + 2 * ssm_groups(cfg) * cfg.ssm_state
+        return d * (d_in + conv_dim + n_heads) + conv_dim * (cfg.ssm_conv + 1) + 3 * n_heads + d_in + d_in * d + d
     if cfg.family == "hybrid":
         # zamba2-style: mamba-only layers; attention+MLP live in the single
         # *shared* block, counted once in _param_count
@@ -166,6 +214,22 @@ def _layer_params(cfg: ArchConfig, layer: int) -> int:
         router = d * cfg.n_experts
         return _attn_params(cfg) + experts + shared + router + norm
     return _attn_params(cfg) + _ffn_params(cfg, cfg.d_ff) + norm
+
+
+def _zamba2_shared_params(cfg: ArchConfig) -> int:
+    """The zamba2 layout's shared block (norms over 2d and d, attention
+    from 2d to d, the gated MLP) and, per invocation, its adapters and
+    linear layer."""
+    d, r, f = cfg.d_model, cfg.adapter_rank, cfg.d_ff
+    a = 2 * d
+    hd, h, kv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    block = a + d + a * (h + 2 * kv) * hd + h * hd * d + _ffn_params(cfg, f)
+    inv = d * d
+    if cfg.use_shared_mlp_adapter:
+        inv += r * (d + 2 * f)
+    if cfg.use_shared_attention_adapter:
+        inv += r * (3 * a + (h + 2 * kv) * hd)
+    return block + len(cfg.hybrid_layer_ids) * inv
 
 
 def _param_count(cfg: ArchConfig, active_only: bool = False) -> int:
@@ -180,7 +244,9 @@ def _param_count(cfg: ArchConfig, active_only: bool = False) -> int:
             act = (cfg.n_shared_experts + cfg.top_k) * _ffn_params(cfg, cfg.d_ff)
             p = _attn_params(cfg) + act + d * cfg.n_experts + 2 * d
         total += p
-    if cfg.family == "hybrid" and cfg.attn_every:
+    if zamba2_layout(cfg):
+        total += _zamba2_shared_params(cfg)
+    elif cfg.family == "hybrid" and cfg.attn_every:
         total += _attn_params(cfg) + _ffn_params(cfg, cfg.d_ff) + 2 * d  # shared block
     if cfg.is_encdec:
         for _ in range(cfg.encoder_layers):

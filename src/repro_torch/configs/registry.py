@@ -35,17 +35,24 @@ _MODULES = [
 ARCHS: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 SMOKES: Dict[str, ArchConfig] = {m.CONFIG.name: m.SMOKE for m in _MODULES}
 
+# served configurations beyond the ten assigned architectures, found by name
+# but outside ARCHS and the assigned cells (the JAX package has no twin)
+_EXTRA: Dict[str, ArchConfig] = {zamba2_1_2b.PUBLISHED.name: zamba2_1_2b.PUBLISHED}
+_EXTRA_SMOKES: Dict[str, ArchConfig] = {zamba2_1_2b.PUBLISHED.name: zamba2_1_2b.PUBLISHED_SMOKE}
+
 
 def get_config(name: str) -> ArchConfig:
-    if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
-    return ARCHS[name]
+    found = ARCHS.get(name) or _EXTRA.get(name)
+    if found is None:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS) + sorted(_EXTRA)}")
+    return found
 
 
 def get_smoke_config(name: str) -> ArchConfig:
-    if name not in SMOKES:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(SMOKES)}")
-    return SMOKES[name]
+    found = SMOKES.get(name) or _EXTRA_SMOKES.get(name)
+    if found is None:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(SMOKES) + sorted(_EXTRA_SMOKES)}")
+    return found
 
 
 def list_archs() -> List[str]:

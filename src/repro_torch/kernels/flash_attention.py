@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -36,17 +37,19 @@ def attention_plain(
     window: int = 0,
     chunk: int = 0,
     q_start: int = 0,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain PyTorch copy of ``repro.kernels.ref.attention_ref``: f32 scores
     and softmax over the whole (masked) score matrix.  ``q_start`` is the
     position of q's first row (k's rows sit at 0..skv-1), so that a long
-    sequence can be taken a block of queries at a time."""
+    sequence can be taken a block of queries at a time.  Scores are scaled
+    by ``scale``, by default 1/sqrt(D)."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     qg = q.reshape(b, sq, kvh, g, d)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
-    s = s / math.sqrt(d)
+    s = s / math.sqrt(d) if scale is None else s * scale
     qpos = torch.arange(q_start, q_start + sq, device=q.device)[:, None]
     kpos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -113,12 +116,14 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     chunk: int = 0,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Forward attention of q against k/v; CUDA tensors run the kernel,
-    CPU and meta tensors :func:`attention_plain`.  ``flash_attention.launches``
-    counts kernel launches."""
+    """Forward attention of q against k/v, scores scaled by ``scale``
+    (1/sqrt(D) by default); CUDA tensors run the kernel, CPU and meta
+    tensors :func:`attention_plain`.  ``flash_attention.launches`` counts
+    kernel launches."""
     if q.device.type in ("cpu", "meta"):  # meta: the dry-run's shapes, no data
-        return attention_plain(q, k, v, causal=causal, window=window, chunk=chunk)
+        return attention_plain(q, k, v, causal=causal, window=window, chunk=chunk, scale=scale)
     _check(q, k, v, window, chunk)
     refuse_autograd("flash_attention", q, k, v)
     b, s, h, d = q.shape
@@ -131,7 +136,7 @@ def flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             DTYPES[q.dtype], b, s, h, k.shape[2], d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            int(causal), int(window), int(chunk), 1.0 / math.sqrt(d),
+            int(causal), int(window), int(chunk), 1.0 / math.sqrt(d) if scale is None else scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:

@@ -22,9 +22,10 @@ __all__ = [
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-              window: int = 0, chunk: int = 0) -> torch.Tensor:
-    """Forward GQA attention, q (B,S,H,D) against k/v (B,S,KV,D)."""
-    return flash_attention(q, k, v, causal=causal, window=window, chunk=chunk)
+              window: int = 0, chunk: int = 0, scale: Optional[float] = None) -> torch.Tensor:
+    """Forward GQA attention, q (B,S,H,D) against k/v (B,S,KV,D), scores
+    scaled by ``scale`` (1/sqrt(D) by default)."""
+    return flash_attention(q, k, v, causal=causal, window=window, chunk=chunk, scale=scale)
 
 
 def ssd_chunk(a_dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -87,14 +87,20 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype, cross: 
 
 
 def _project_qkv(
-    p: Params, x: torch.Tensor, kv_x: Optional[torch.Tensor] = None
+    p: Params, x: torch.Tensor, kv_x: Optional[torch.Tensor] = None, adapter: Optional[Params] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B,S,D) → q (B,S,H,hd), k/v (B,Skv,KV,hd); ``kv_x`` for
-    cross-attention."""
+    cross-attention.  ``adapter`` adds a low-rank term to each projection
+    (``q_a`` (D, r) then ``q_b`` (r, H, hd), and so for k and v): the
+    zamba2 shared block's per-invocation LoRA."""
     kv_src = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"])
+    if adapter is not None:
+        q = q + torch.einsum("bsr,rhk->bshk", x @ adapter["q_a"], adapter["q_b"])
+        k = k + torch.einsum("bsr,rhk->bshk", kv_src @ adapter["k_a"], adapter["k_b"])
+        v = v + torch.einsum("bsr,rhk->bshk", kv_src @ adapter["v_a"], adapter["v_b"])
     if "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -146,9 +152,12 @@ def _attention_core(
     window: int,
     q_chunk: int = 1024,
     grad: bool = False,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Scaled-dot-product GQA over full K/V (qpos and kpos both
-    ``arange``).  Under rules that map ``seq_act`` to a mesh axis, the
+    ``arange``), scores scaled by ``scale`` (1/sqrt(hd) by default; another
+    scale is taken on the plain path and by the kernel's forward only).
+    Under rules that map ``seq_act`` to a mesh axis, the
     reference's sequence-parallel einsums (:func:`_attention_seq_act`,
     never the kernel).  Any attention of DTensors (self- and
     cross-attention, under ``seq_act`` or not) runs on each rank's shards
@@ -158,6 +167,9 @@ def _attention_core(
     :func:`_attention_core_plain`."""
     if kind not in KINDS:
         raise ValueError(f"unknown attention kind {kind!r}")
+    if scale is not None and (grad or is_dtensor(q) or _seq_act()):
+        raise NotImplementedError("attention with a score scale other than 1/sqrt(hd) runs unsharded and without "
+                                  "autograd (the zamba2 layout's serving path)")
     seq_act = _seq_act()
     if is_dtensor(q):
         return _attention_local(q, k, v, kind, window, grad, seq_act)
@@ -166,8 +178,10 @@ def _attention_core(
     if _kernel_route(q, k):
         if grad:
             return FlashAttentionFn.apply(q, k, v, kind, window)
+        if scale is not None:  # (a stand-in for the entry, as chip_smoke.py's plain one, may take no scale)
+            return kops.attention(q, k, v, **_kernel_kw(kind, window), scale=scale)
         return kops.attention(q, k, v, **_kernel_kw(kind, window))
-    return _attention_core_plain(q, k, v, qpos, kpos, kind, window, q_chunk)
+    return _attention_core_plain(q, k, v, qpos, kpos, kind, window, q_chunk, scale)
 
 
 def _attention_seq_act(q, k, v, qpos, kpos, kind: str, window: int) -> torch.Tensor:
@@ -275,18 +289,20 @@ def _attention_core_plain(
     kind: str,
     window: int,
     q_chunk: int = 1024,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """The reference's lowering (``_attention_core``'s scan), on any
     device: q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd); qpos = arange(Sq), kpos =
     arange(Skv); scanned over query chunks, with K/V sliced per chunk for
-    swa/chunked so those flavours cost O(S·window); scores in f32,
-    probabilities cast to v's dtype.  The slices are computed from the
+    swa/chunked so those flavours cost O(S·window); scores in f32 scaled by
+    ``scale`` (1/sqrt(hd) by default), probabilities cast to v's dtype.
+    The slices are computed from the
     chunk index, never read from a position tensor, so a meta tensor (the
     dry-run) takes this path too."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     cq = min(q_chunk, sq)
     n_chunks = sq // cq if sq % cq == 0 else 0
     if n_chunks == 0:  # ragged: single block
@@ -437,15 +453,18 @@ def _write_prefix(dst: torch.Tensor, src: torch.Tensor) -> None:
 
 
 def attention_prefill(
-    p: Params, x: torch.Tensor, cfg: ArchConfig, cache: Params, kind: str, window: int = 0
+    p: Params, x: torch.Tensor, cfg: ArchConfig, cache: Params, kind: str, window: int = 0, *,
+    scale: Optional[float] = None, adapter: Optional[Params] = None,
 ) -> Tuple[torch.Tensor, Params]:
-    """Prompt attention; fills ``cache`` in place and returns it."""
+    """Prompt attention; fills ``cache`` in place and returns it.  ``scale``
+    replaces the scores' 1/sqrt(hd), ``adapter`` adds low-rank terms to the
+    projections (:func:`_project_qkv`)."""
     sq = x.shape[1]
-    q, k, v = _project_qkv(p, x)
+    q, k, v = _project_qkv(p, x, adapter=adapter)
     qpos = torch.arange(sq, dtype=torch.int32, device=x.device)
     q = apply_rope(q, qpos, cfg.rope_theta)
     k = apply_rope(k, qpos, cfg.rope_theta)
-    out = _attention_core(q, k, v, qpos, qpos, kind, window)
+    out = _attention_core(q, k, v, qpos, qpos, kind, window, scale=scale)
     _cache_write_prefill(cache, k, v, qpos)
     # placed as the train path places it (the reference leaves it to GSPMD):
     # a seq_act-sharded output would merge two sharded dims into the
@@ -507,14 +526,18 @@ def attention_decode(
     positions: torch.Tensor,
     kind: str,
     window: int = 0,
+    *,
+    scale: Optional[float] = None,
+    adapter: Optional[Params] = None,
 ) -> Tuple[torch.Tensor, Params]:
     """One-token step.  x: (B,1,D); positions: (B,) absolute position of the
     new token per request.  Writes each row's slot of ``cache`` in place
-    (the JAX package donates the cache) and returns it."""
+    (the JAX package donates the cache) and returns it.  ``scale`` and
+    ``adapter`` as in :func:`attention_prefill`."""
     b = x.shape[0]
     h, hd = cfg.n_heads, cfg.resolved_head_dim
     with obs.range("attn.qkv"):
-        q, k, v = _project_qkv(p, x)  # (B,1,·,hd)
+        q, k, v = _project_qkv(p, x, adapter=adapter)  # (B,1,·,hd)
         q = apply_rope(q, positions[:, None], cfg.rope_theta)
         k = apply_rope(k, positions[:, None], cfg.rope_theta)
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
@@ -533,7 +556,7 @@ def attention_decode(
             visible &= cpos.div(window, rounding_mode="floor") == qp.div(window, rounding_mode="floor")
         qg = _group_heads(q, ck)
         scores = torch.einsum("bqkgh,bskh->bkgqs", qg, ck).float()
-        scores = scores / math.sqrt(hd)
+        scores = scores / math.sqrt(hd) if scale is None else scores * scale
         scores = scores.masked_fill(~visible[:, None, None, None, :], NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(cv.dtype)
         out = torch.einsum("bkgqs,bskh->bqkgh", probs, cv).reshape(b, 1, h, hd)

@@ -31,6 +31,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 
+from .. import obs
 from ..kernels import ops as kops
 from ..sharding.logical import replicate_plain
 from ..tree import leaves
@@ -93,7 +94,9 @@ class DecodeGraph:
     what the first call of each op builds, outside the capture), then
     captures: both write ``cache``, which the caller puts back.  Called
     under ``torch.inference_mode`` as the step it replays is.
-    ``pieces`` is the number of graphs, ``replays`` the steps replayed.
+    ``pieces`` is the number of graphs, ``replays`` the steps replayed;
+    each replay adds to :data:`repro_torch.obs.counters` what the captured
+    step counted (the shared-block invocations of a hybrid).
     """
 
     _live: "weakref.WeakValueDictionary[int, DecodeGraph]" = weakref.WeakValueDictionary()
@@ -113,7 +116,9 @@ class DecodeGraph:
         with torch.cuda.stream(stream):
             _tile(params, cfg, self.tokens, self.positions, cache)
             stream.synchronize()
+            before = obs.counters.copy()
             self.logits = self._capture(cfg)
+            self._counts = obs.counters - before  # what one step counts, added again at each replay
         torch.cuda.current_stream(dev).wait_stream(stream)
         self.pieces = sum(isinstance(p, torch.cuda.CUDAGraph) for p in self._program)
         DecodeGraph._live[id(cache)] = self
@@ -166,5 +171,7 @@ class DecodeGraph:
             else:
                 name, args, kwargs, out = piece
                 getattr(kops, name)(*args, out=out, **kwargs)
+        for name, n in self._counts.items():
+            obs.count(name, n)
         self.replays += 1
         return self.logits

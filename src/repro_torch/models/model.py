@@ -20,7 +20,10 @@ every ``attn_every``-th layer (on its own slice ``idx // attn_every`` of
 the stacked ``shared_attn`` cache when serving), where the reference has
 ``lax.cond``; so do llama4's global layers (every ``global_every``-th
 attends over the full context, the others chunk-locally), in train,
-prefill and decode.  A MoE layer's FFN is
+prefill and decode.  A hybrid in the ``zamba2`` layout
+(``zamba2-1.2b-published``, served only) runs published Zamba2's shared
+block instead, before each of its ``hybrid_layer_ids`` on concat(h, x0)
+(:func:`_zamba2_layers`).  A MoE layer's FFN is
 :func:`repro_torch.models.moe.moe_apply`; the train path sums its aux loss
 over the layers, the serving path drops it as the reference's does.  The
 VLM takes its stubbed vision frontend's patch embeddings as
@@ -48,9 +51,10 @@ import math
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from .. import obs
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, shared_layers, zamba2_layout
 from ..device import resolve_device
 from ..sharding.logical import contiguous_grads, is_dtensor, replicate_plain, shard
 from ..tree import tree_map
@@ -136,6 +140,39 @@ def _layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Pa
     return _block_init(gen, cfg, dtype)
 
 
+def _zamba2_block_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
+    """The zamba2 layout's shared block: a norm over the attention input
+    (concat(h, x0), 2 * d_model wide), attention from that width back to
+    d_model, a norm over d_model and the gated MLP."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    a = 2 * d
+    ones = lambda n: torch.ones((n,), dtype=dtype, device=gen.device)  # noqa: E731
+    return {
+        "ln1": ones(a),
+        "attn": {"wq": dense_init(gen, (a, h, hd), dtype), "wk": dense_init(gen, (a, kv, hd), dtype),
+                 "wv": dense_init(gen, (a, kv, hd), dtype),
+                 "wo": dense_init(gen, (h, hd, d), dtype, scale=1.0 / math.sqrt(h * hd))},
+        "ln2": ones(d),
+        "ffn": ffn_init(gen, d, cfg.d_ff, dtype, gated=True),
+    }
+
+
+def _zamba2_inv_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
+    """One invocation's own weights in the zamba2 layout: the linear layer
+    after the block, the gate-up adapter (``ffn_a`` then ``ffn_b``, whose
+    output is [gate | up]) and the q/k/v adapters, as the flags set them."""
+    d, r, f = cfg.d_model, cfg.adapter_rank, cfg.d_ff
+    a = 2 * d
+    p = {"linear": dense_init(gen, (d, d), dtype)}
+    if cfg.use_shared_mlp_adapter:
+        p["ffn_a"], p["ffn_b"] = dense_init(gen, (d, r), dtype), dense_init(gen, (r, 2 * f), dtype)
+    if cfg.use_shared_attention_adapter:
+        for n, heads in (("q", cfg.n_heads), ("k", cfg.n_kv_heads), ("v", cfg.n_kv_heads)):
+            p[f"{n}_a"] = dense_init(gen, (a, r), dtype)
+            p[f"{n}_b"] = dense_init(gen, (r, heads, cfg.resolved_head_dim), dtype)
+    return p
+
+
 def _encoder_layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=gen.device)  # noqa: E731
     return {"ln1": ones(), "attn": attn.attn_init(gen, cfg, dtype), "ln2": ones(),
@@ -157,7 +194,10 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype, scale=1.0 / math.sqrt(cfg.d_model))
     p["layers"] = _init_stacked(lambda: _layer_init(gen, cfg, dtype), cfg.n_layers)
-    if cfg.family == "hybrid":
+    if zamba2_layout(cfg):
+        p["shared_block"] = _zamba2_block_init(gen, cfg, dtype)
+        p["shared_inv"] = _init_stacked(lambda: _zamba2_inv_init(gen, cfg, dtype), len(cfg.hybrid_layer_ids))
+    elif cfg.family == "hybrid":
         p["shared_block"] = _block_init(gen, cfg, dtype)
     if cfg.is_encdec:
         p["encoder"] = _init_stacked(lambda: _encoder_layer_init(gen, cfg, dtype), cfg.encoder_layers)
@@ -291,6 +331,8 @@ def _decoder_train(
     model has an encoder); returns (hidden, aux_loss_sum)."""
     if remat not in REMATS:
         raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+    if zamba2_layout(cfg):
+        raise NotImplementedError(f"{cfg.name}: the zamba2 layout is served (prefill, decode_step), not trained")
 
     shared = params.get("shared_block")
 
@@ -391,7 +433,7 @@ def init_cache(cfg: ArchConfig, batch: int, context: int, device: Union[str, tor
     if cfg.family in ("ssm", "hybrid"):
         cache["ssm"] = _stacked(ssm_mod.init_ssm_cache(cfg, batch, dtype, dev), L)
         if cfg.family == "hybrid":
-            n_inv = (L + cfg.attn_every - 1) // cfg.attn_every
+            n_inv = len(shared_layers(cfg))
             cache["shared_attn"] = _stacked(attn.init_kv_cache(cfg, batch, context, dtype, dev), n_inv)
         return cache
     init = attn.init_mla_cache if cfg.attn_kind == "mla" else attn.init_kv_cache
@@ -407,13 +449,23 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cac
     """Process the prompt ``batch["tokens"]`` (B, S) [+ ``prefix`` |
     ``frames``]; returns (logits for the last position (B, 1, V), cache
     filled in place)."""
+    _refuse_sharded_zamba2(params, cfg)
     with replicate_plain(params):
         return _prefill(params, cfg, batch, cache)
+
+
+def _refuse_sharded_zamba2(params: Params, cfg: ArchConfig) -> None:
+    if zamba2_layout(cfg) and is_dtensor(params["embed"]):
+        raise NotImplementedError(f"{cfg.name}: the zamba2 layout runs on plain tensors, not DTensors")
 
 
 def _prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cache: Params) -> Tuple[torch.Tensor, Params]:
     with obs.range("embed"):
         x = _embed_inputs(params, cfg, batch)
+    if zamba2_layout(cfg):
+        x = _zamba2_layers(params, cfg, x, cache)
+        with obs.range("logits"):
+            return _logits(params, cfg, x[:, -1:, :]), cache
     enc_out = None
     if cfg.is_encdec:  # the cross K/V, once a request
         enc_out = _encode(params, cfg, batch["frames"])
@@ -465,6 +517,62 @@ def _shared_block(sp: Params, cfg: ArchConfig, x: torch.Tensor, sa: Params, posi
     return x + ffn_apply(sp["ffn"], rms_norm(x, sp["ln2"], cfg.norm_eps), gated=cfg.gated_ffn)
 
 
+def _zamba2_layers(params: Params, cfg: ArchConfig, x: torch.Tensor, cache: Params,
+                   positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The zamba2 layout's layers on the embeddings x0 = ``x``: the prompt
+    (``positions`` None) or one decode step.  Before each layer of
+    ``hybrid_layer_ids`` (invocation j) the shared block reads (h, x0) and
+    its output is added to that Mamba layer's input before the layer's
+    norm; the layer's residual is h, without it (transformers'
+    ``Zamba2HybridLayer``)."""
+    x0 = x
+    inv = {layer: j for j, layer in enumerate(cfg.hybrid_layer_ids)}
+    for i in range(cfg.n_layers):
+        lp = _index(params["layers"], i)
+        u = x
+        if i in inv:
+            with obs.range("shared_block"):
+                u = x + _zamba2_shared(params, cfg, x, x0, inv[i], _index(cache["shared_attn"], inv[i]), positions)
+        with obs.range("mixer"):
+            hn = rms_norm(u, lp["ln1"], cfg.norm_eps)
+            st = _index(cache["ssm"], i)
+            if positions is None:
+                a, _ = ssm_mod.ssm_apply(lp["ssm"], hn, cfg, state=st)
+            else:
+                a, _ = ssm_mod.ssm_decode(lp["ssm"], hn, cfg, st)
+            x = x + a
+    return x
+
+
+def _zamba2_shared(params: Params, cfg: ArchConfig, h: torch.Tensor, x0: torch.Tensor, j: int, sa: Params,
+                   positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """Invocation ``j`` of the zamba2 shared block on its cache slice ``sa``
+    (transformers' ``Zamba2AttentionDecoderLayer``, then the invocation's
+    linear layer): norm of concat(h, x0); attention at head dim hd with
+    scores scaled by (hd / 2)^-1/2, RoPE, q/k/v
+    adapters where ``use_shared_attention_adapter``; norm; GeGLU with the
+    gate-up adapter where ``use_shared_mlp_adapter``; no residual inside."""
+    sp, ip = params["shared_block"], _index(params["shared_inv"], j)
+    obs.count("shared_block")
+    with obs.range("shared.in"):
+        hn = rms_norm(torch.cat([h, x0], dim=-1), sp["ln1"], cfg.norm_eps)
+    kw = dict(scale=(cfg.resolved_head_dim / 2) ** -0.5, adapter=ip if cfg.use_shared_attention_adapter else None)
+    if positions is None:
+        a, _ = attn.attention_prefill(sp["attn"], hn, cfg, sa, cfg.attn_kind, cfg.window, **kw)
+    else:
+        a, _ = attn.attention_decode(sp["attn"], hn, cfg, sa, positions, cfg.attn_kind, cfg.window, **kw)
+    with obs.range("shared.mlp"):
+        m = rms_norm(a, sp["ln2"], cfg.norm_eps)
+        fp, f = sp["ffn"], cfg.d_ff
+        gate, up = m @ fp["w_gate"], m @ fp["w_up"]
+        if cfg.use_shared_mlp_adapter:
+            gu = (m @ ip["ffn_a"]) @ ip["ffn_b"]
+            gate, up = gate + gu[..., :f], up + gu[..., f:]
+        m = (F.gelu(gate) * up) @ fp["w_down"]
+    with obs.range("shared.out"):
+        return m @ ip["linear"]
+
+
 def _cross_decode(cp: Params, cfg: ArchConfig, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
     """One token's cross-attention against the cached encoder K/V
     (B, encoder_seq, KV, hd)."""
@@ -500,6 +608,7 @@ def decode_step(
     with copies of its first row on a copy of its cache rows, which are
     written back.  DTensor rows run as one tile: a tile's slice of a
     batch sharded over the mesh would gather the cache."""
+    _refuse_sharded_zamba2(params, cfg)
     b = tokens.shape[0]
     if b == DECODE_TILE or is_dtensor(tokens):
         with replicate_plain(params):
@@ -530,6 +639,10 @@ def _decode_tile(params: Params, cfg: ArchConfig, tokens: torch.Tensor, position
     """:func:`decode_step` on one tile of rows; returns the logits."""
     with obs.range("embed"):
         x = _embed_tokens(params, tokens)
+    if zamba2_layout(cfg):
+        x = _zamba2_layers(params, cfg, x, cache, positions)
+        with obs.range("logits"):
+            return _logits(params, cfg, x)
     for i in range(cfg.n_layers):
         lp = _index(params["layers"], i)
         with obs.range("mixer"):

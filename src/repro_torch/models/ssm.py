@@ -23,7 +23,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..configs.base import ArchConfig
+from .. import obs
+from ..configs.base import ArchConfig, ssm_groups, zamba2_layout
 from ..kernels import ops as kops
 from ..sharding.logical import contiguous_grads, is_dtensor, local_einsum, shard
 from .layers import Params, dense_init, rms_norm
@@ -34,7 +35,7 @@ __all__ = ["ssm_init", "ssm_apply", "init_ssm_cache", "ssm_decode", "ssd_chunked
 def _dims(cfg: ArchConfig) -> Tuple[int, int, int, int, int]:
     d_in = cfg.ssm_expand * cfg.d_model
     n_heads = d_in // cfg.ssm_head_dim
-    n_groups = 1
+    n_groups = ssm_groups(cfg)
     d_state = cfg.ssm_state
     conv_dim = d_in + 2 * n_groups * d_state
     return d_in, n_heads, n_groups, d_state, conv_dim
@@ -262,6 +263,18 @@ def _ssd_inputs(p: Params, xbc: torch.Tensor, dt: torch.Tensor, cfg: ArchConfig)
     return x, b, c, dt, a
 
 
+def _out_norm(p: Params, y: torch.Tensor, z: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The mixer's gated output norm of y (B,S,d_in): RMS of y·silu(z) over
+    the whole width; in the zamba2 layout, transformers'
+    ``Zamba2RMSNormGated``: y·silu(z) in f32, RMS over each of
+    ``ssm_groups`` groups of d_in / ssm_groups, cast back, times the weight."""
+    if not zamba2_layout(cfg):
+        return rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    gated = (y.float() * F.silu(z.float())).unflatten(-1, (ssm_groups(cfg), -1))
+    gated = gated * torch.rsqrt(gated.square().mean(-1, keepdim=True) + cfg.norm_eps)
+    return p["norm_w"] * gated.flatten(-2).to(y.dtype)
+
+
 def ssm_apply(
     p: Params,
     u: torch.Tensor,
@@ -276,11 +289,13 @@ def ssm_apply(
     x = shard(x, "batch", "seq", "ssm_heads", None)
     xd = x * dt[..., None].to(x.dtype)
     a_dt = a * dt  # (B,S,H)
-    y, final_state = ssd_chunked(xd, a_dt, b, c, cfg.ssm_chunk)
+    with obs.range("mixer.ssd"):
+        y, final_state = ssd_chunked(xd, a_dt, b, c, cfg.ssm_chunk)
     y = y + x * p["D"][None, None, :, None].to(x.dtype)
     bsz, s = u.shape[:2]
     y = y.reshape(bsz, s, -1)
-    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    with obs.range("mixer.norm"):
+        y = _out_norm(p, y, z, cfg)
     out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
     if state is not None:
         state["ssm"].copy_(final_state)
@@ -315,11 +330,13 @@ def ssm_decode(p: Params, u: torch.Tensor, cfg: ArchConfig, state: Params) -> Tu
     c1 = c[:, 0].repeat_interleave(rep, dim=1)
     xd = x[:, 0] * dt[:, 0, :, None].to(x.dtype)  # (B,H,P)
     ssm = state["ssm"]
-    s_new = decay[..., None, None].to(ssm.dtype) * ssm + torch.einsum("bhp,bhn->bhpn", xd, b1).to(ssm.dtype)
-    y = local_einsum("bhpn,bhn->bhp", s_new, c1)  # (B,H,P); on DTensors each rank's batch and heads
+    with obs.range("mixer.ssd"):
+        s_new = decay[..., None, None].to(ssm.dtype) * ssm + torch.einsum("bhp,bhn->bhpn", xd, b1).to(ssm.dtype)
+        y = local_einsum("bhpn,bhn->bhp", s_new, c1)  # (B,H,P); on DTensors each rank's batch and heads
     y = y + x[:, 0] * p["D"][None, :, None].to(x.dtype)
     y = y.reshape(bsz, 1, d_in)
-    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    with obs.range("mixer.norm"):
+        y = _out_norm(p, y, z, cfg)
     out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
     ssm.copy_(s_new)
     state["conv"].copy_(new_conv)

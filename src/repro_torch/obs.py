@@ -19,6 +19,9 @@ time the serving stack keeps: the spans, ``DecodeCore``'s counters and the
   alone, and only while a profiler records; otherwise one shared no-op.
 * :func:`spans` copies the ring out with the count of records it dropped;
   :func:`clear` empties it.
+* :func:`count` adds to a named counter of the process (:data:`counters`),
+  always on: ``shared_block`` counts the hybrid's shared-block invocations
+  (6 a token of ``zamba2-1.2b-published``, replayed decode steps included).
 
 The profiler stamps its host events on the Unix clock, not this one: the
 offset between the two is read when a profiled span opens after an
@@ -35,7 +38,8 @@ from typing import List, Optional, Tuple
 import torch
 from torch.autograd import profiler as _profiler
 
-__all__ = ["CAPACITY", "now", "now_ns", "span", "interval", "range", "spans", "clear", "from_profiler_ns"]
+__all__ = ["CAPACITY", "now", "now_ns", "span", "interval", "range", "spans", "clear", "from_profiler_ns", "counters",
+           "count"]
 
 CAPACITY = 65_536  # records the ring keeps; older ones are dropped and counted
 
@@ -50,6 +54,7 @@ _appended = 0  # records appended since the last clear
 _in_session = False  # whether the last span opened while a profiler recorded
 _offset_ns = time.time_ns() - time.perf_counter_ns()  # Unix clock minus the tracer's
 _NOOP = contextlib.nullcontext()
+counters: "collections.Counter[str]" = collections.Counter()  # named event counts of the process, never reset here
 
 
 class _Open(threading.local):
@@ -133,6 +138,11 @@ def range(name: str):  # noqa: A001 -- the tracer's name for a model range
     if not _profiler._is_profiler_enabled:
         return _NOOP
     return torch.profiler.record_function("repro::" + name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    counters[name] += n
 
 
 def spans() -> Tuple[List[Record], int]:

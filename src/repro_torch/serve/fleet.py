@@ -57,7 +57,7 @@ from typing import Any, Dict, List, Optional
 
 from .. import obs
 from ..checkpoint.snapshot import pack_state, unpack_state
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, zamba2_layout
 from ..core.comm.collective import CollectiveGroup, CommChannel
 from ..core.comm.membership import GONE, Membership
 from ..core.comm.progress import (
@@ -230,6 +230,8 @@ class Router:
     exactly like :class:`~repro_torch.serve.server.InferenceServer`."""
 
     def __init__(self, arch: ArchConfig, params: Any, cfg: Optional[FleetConfig] = None):
+        if zamba2_layout(arch):
+            raise NotImplementedError(f"{arch.name}: the zamba2 layout is served by one InferenceServer, not a fleet")
         self.cfg = cfg = FleetConfig() if cfg is None else cfg
         assert cfg.workers >= 1 and cfg.slots >= cfg.workers, (cfg.workers, cfg.slots)
         self.arch, self.params = arch, params

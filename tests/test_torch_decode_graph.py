@@ -13,7 +13,8 @@ On the CPU (tier 1):
 On the card (``gpu``-marked; each skips without one):
 
 * Every family ``DecodeCore`` serves, at its smoke size in bf16, and
-  deepseek-moe-16b at full width (single-shot and chunked prefill): over
+  deepseek-moe-16b and zamba2-1.2b-published at full width (single-shot
+  and chunked prefill): over
   20 steps with admissions and finishes between them, the replayed step's
   logits and the served tokens equal the eager ``decode_step``'s on a twin
   core, bit for bit.
@@ -22,6 +23,8 @@ On the card (``gpu``-marked; each skips without one):
   on deepseek-moe-16b), and a card-only profiler session over replayed
   steps holds one ``gmm_kernel`` record a launch and the eager step's busy
   time within 5%.
+* zamba2-1.2b-published at full width runs its shared block 6 times a
+  token (``obs.counters["shared_block"]``), prefilled, replayed or eager.
 
 Imports no jax: on a machine without JAX run it with ``--noconftest``."""
 import contextlib
@@ -29,7 +32,8 @@ import contextlib
 import pytest
 import torch
 
-from repro_torch.configs import SMOKES, get_config
+from repro_torch import obs
+from repro_torch.configs import SMOKES, get_config, get_smoke_config
 from repro_torch.kernels import grouped_matmul, grouped_matmul_plain, ops
 from repro_torch.models import decode_step, init_cache, init_params, prefill
 from repro_torch.models.decode_graph import DecodeGraph, entry_calls
@@ -39,7 +43,7 @@ from repro_torch.serve.server import Request
 from repro_torch.tree import leaves
 
 SERVED = ["tinyllama-1.1b", "mamba2-130m", "zamba2-1.2b", "minicpm3-4b", "internvl2-76b",
-          "llama4-scout-17b-a16e", "deepseek-moe-16b"]
+          "llama4-scout-17b-a16e", "deepseek-moe-16b", "zamba2-1.2b-published"]
 # (engine step at which the request is admitted, prompt, max_new): finishes and
 # admissions fall between steps, and slots are recycled
 SCHEDULE = [(0, [1, 2, 3], 6), (0, [4, 5], 20), (0, [9, 8, 7, 6, 5, 4, 3, 2, 1], 3), (0, [2, 2], 12),
@@ -110,9 +114,9 @@ def test_cpu_core_builds_no_runner_and_serves_the_model_apis_tokens(slots):
 
 @pytest.mark.parametrize("name,per_layer", [("deepseek-moe-16b", 3), ("llama4-scout-17b-a16e", 3),
                                             ("tinyllama-1.1b", 0), ("mamba2-130m", 0), ("zamba2-1.2b", 0),
-                                            ("minicpm3-4b", 0)])
+                                            ("minicpm3-4b", 0), ("zamba2-1.2b-published", 0)])
 def test_cuts_are_the_expert_products(name, per_layer):
-    arch = SMOKES[name].variant(dtype="float32")
+    arch = get_smoke_config(name).variant(dtype="float32")
     params = init_params(torch.Generator().manual_seed(0), arch)
     calls = entry_calls(params, arch, init_cache(arch, 8, 16, "cpu"))
     assert calls == ["expert_ffn_matmul"] * per_layer * arch.n_layers
@@ -183,7 +187,7 @@ def deepseek_full():
 @pytest.mark.parametrize("name", SERVED)
 def test_cuda_replayed_steps_equal_eager_steps(name):
     _card()
-    arch = SMOKES[name].variant(dtype="bfloat16")
+    arch = get_smoke_config(name).variant(dtype="bfloat16")
     _replayed_equals_eager(arch, init_params(torch.Generator(device="cuda").manual_seed(0), arch), 64)
 
 
@@ -193,11 +197,45 @@ def test_cuda_full_width_deepseek_replays_the_eager_step(deepseek_full, prefill_
     _replayed_equals_eager(*deepseek_full, 256, prefill_chunk)
 
 
+@pytest.fixture(scope="module")
+def zamba2_full():
+    _card()
+    arch = get_config("zamba2-1.2b-published")
+    return arch, init_params(torch.Generator(device="cuda").manual_seed(0), arch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prefill_chunk", [0, 4])
+def test_cuda_full_width_zamba2_replays_the_eager_step(zamba2_full, prefill_chunk):
+    _replayed_equals_eager(*zamba2_full, 256, prefill_chunk)
+
+
+@pytest.mark.gpu
+def test_cuda_full_width_zamba2_runs_six_shared_blocks_a_token(zamba2_full):
+    arch, params = zamba2_full
+    core = DecodeCore(arch, params, slots=8, context=256)
+    assert core.graph_pieces >= 1
+    count = lambda: obs.counters["shared_block"]  # noqa: E731
+    n = count()
+    core.admit(Request(rid=0, prompt=list(range(5, 40)), max_new=50), lambda req, tok, done: None)
+    assert count() - n == 6  # the prompt's prefill
+    for i in range(1, 8):
+        core.admit(Request(rid=i, prompt=[5 + i, 6, 7], max_new=50), lambda req, tok, done: None)
+    n = count()
+    core.step(lambda req, tok, done: None)
+    assert core.graph_steps == 1 and count() - n == 6  # one replayed step of 8 rows
+    n = count()
+    with torch.inference_mode():
+        decode_step(params, arch, torch.zeros((8, 1), dtype=torch.long, device="cuda"),
+                    torch.full((8,), 40, dtype=torch.int32, device="cuda"), init_cache(arch, 8, 256, "cuda"))
+    assert count() - n == 6  # one eager step
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", SERVED)
 def test_cuda_construction_leaves_a_fresh_cache(name):
     _card()
-    arch = SMOKES[name].variant(dtype="bfloat16")
+    arch = get_smoke_config(name).variant(dtype="bfloat16")
     core = DecodeCore(arch, init_params(torch.Generator(device="cuda").manual_seed(0), arch), slots=8, context=64)
     fresh = init_cache(arch, 8, 64, "cuda")
     assert core.graph_pieces >= 1
