@@ -27,11 +27,16 @@ dropped slot's token gets none, as the reference's dropped scatter gives.
 The router's gradient flows through the gates and, into the aux loss,
 through the probabilities.
 
-On DTensors the routing runs as DTensor ops, and the dispatch and
-combine run on each rank's batch rows (``local_map``): each rank fills
-its own (E, B_local, C, D) queues, which are then redistributed to the
-expert sharding, and gathers its rows back from them.  The einsum oracle
-runs unsharded only.
+A slot's position in its expert's queue (the number of earlier slots on
+that expert) comes from a stable sort of the slot-major expert ids, where
+the reference counts them with a prefix sum over a one-hot (B, k·S, E);
+the integers are the same.
+
+On DTensors the routing runs as DTensor ops, and the positions, the
+dispatch and the combine run on each rank's batch rows (``local_map``):
+each rank fills its own (E, B_local, C, D) queues, which are then
+redistributed to the expert sharding, and gathers its rows back from
+them.  The einsum oracle runs unsharded only.
 """
 from __future__ import annotations
 
@@ -106,14 +111,36 @@ def _assign(probs: torch.Tensor, gate_vals: torch.Tensor, gate_idx: torch.Tensor
     # slot-major flattening: slot 0 of every token, then slot 1, …
     e_idx = shard(gate_idx.transpose(1, 2).reshape(b, k * s), "batch", None)  # (B,kS)
     gates = shard(gate_vals.transpose(1, 2).reshape(b, k * s), "batch", None)
-    assign = _one_hot(e_idx, e).int()  # (B,kS,E)
-    pos = ((torch.cumsum(assign, dim=1) - assign) * assign).sum(-1)  # earlier slots on the same expert
+    pos = _positions_local(e_idx, e) if is_dtensor(e_idx) else _positions(e_idx, e)
     keep = pos < cap
     # aux loss (Switch/GShard): E · Σ_e frac_tokens_e · mean_prob_e
     frac_tokens = _one_hot(gate_idx[..., 0], e).float().mean(dim=(0, 1))
     mean_probs = probs.mean(dim=(0, 1))
     aux = e * torch.sum(frac_tokens * mean_probs)
     return e_idx, pos, keep, gates, cap, aux
+
+
+def _positions(e_idx: torch.Tensor, e: int) -> torch.Tensor:
+    """(B,kS) int64 number of earlier slots on each slot's expert, from a
+    stable sort of the ids: a slot's rank in sorted order less the first
+    rank of its expert there.  The sort keeps slot order within an
+    expert, so this is the one-hot prefix count of the reference, integer
+    for integer; it sorts a narrow copy of the ids (fewer radix passes on
+    the card) and reads nothing back to the host."""
+    ids, order = torch.sort(e_idx.to(torch.uint8 if e <= 256 else torch.int32), dim=1, stable=True)
+    rank = torch.arange(ids.shape[1], device=ids.device) - torch.searchsorted(ids, ids)
+    return torch.empty_like(rank).scatter_(1, order, rank)
+
+
+def _positions_local(e_idx: torch.Tensor, e: int) -> torch.Tensor:
+    """:func:`_positions` of a DTensor on each rank's batch rows
+    (``local_map``): a row's positions depend on its own slots only, and
+    DTensor takes no ``searchsorted`` of a tensor and a DTensor."""
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = _batch_placements(e_idx, 0)
+    return local_map(lambda el: _positions(el, e), out_placements=list(pl), in_placements=(pl,),
+                     device_mesh=e_idx.device_mesh, redistribute_inputs=True)(e_idx)
 
 
 def _queue_rows(e_idx: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor, cap: int, e: int) -> torch.Tensor:

@@ -121,6 +121,49 @@ def test_route_matches(layer, capacity_factor):
     assert bool(tkeep.all()) == (capacity_factor == 16.0)
 
 
+def _one_hot_positions(e_idx, e):
+    """The reference's positions: a prefix sum over the one-hot of the
+    slot-major ids, the earlier slots on the same expert."""
+    assign = (e_idx[..., None] == torch.arange(e)).int()
+    return ((torch.cumsum(assign, dim=1) - assign) * assign).sum(-1)
+
+
+# (B, S, k, E, ids, capacity factor, drops); ids: "spread" top-k of random
+# scores, "crowded" the same with a third of the tokens on 3 experts, "one"
+# every slot on one expert
+POSITION_CASES = {
+    "decode-8x6": (8, 1, 6, 64, "spread", 1.25, False),
+    "crowded-2x384": (2, 64, 6, 64, "crowded", 16.0, False),
+    "prefill-1x9000": (1, 1500, 6, 64, "spread", 16.0, False),
+    "longest-1x21504": (1, 3584, 6, 64, "crowded", 16.0, False),
+    "one-expert-2x600": (2, 100, 6, 64, "one", 16.0, True),
+    "drops-4x6000": (4, 1000, 6, 64, "crowded", 1.0, True),
+    "wide-ids-2x300": (2, 100, 3, 300, "crowded", 1.25, True),
+}
+
+
+@pytest.mark.parametrize("case", POSITION_CASES.values(), ids=POSITION_CASES.keys())
+def test_positions_equal_the_one_hot_prefix_sum(case):
+    """``_assign``'s positions from the stable sort equal the one-hot prefix
+    sum integer for integer, and the keep mask is that sum under the
+    capacity."""
+    b, s, k, e, ids, capacity_factor, drops = case
+    cfg = SMOKES[NAME].variant(n_experts=e, top_k=k, capacity_factor=capacity_factor)
+    gen = torch.Generator().manual_seed(b * s + e)
+    probs = torch.softmax(torch.randn((b, s, e), generator=gen), dim=-1)
+    scores = probs.clone()
+    if ids == "crowded":
+        scores[..., :3] += (torch.rand((b, s, 1), generator=gen) < 0.35).float()
+    gate_idx = torch.topk(scores, k, dim=-1).indices
+    if ids == "one":
+        gate_idx = torch.full_like(gate_idx, 5)
+    e_idx, pos, keep, _, cap, _ = moe._assign(probs, probs.gather(-1, gate_idx), gate_idx, cfg)
+    want = _one_hot_positions(e_idx, e)
+    assert e_idx.shape == (b, k * s) and pos.dtype == want.dtype == torch.int64
+    assert torch.equal(pos, want) and torch.equal(keep, want < cap)
+    assert bool(keep.all()) != drops
+
+
 @pytest.mark.parametrize("dispatch_mode", ["scatter", "einsum"])
 @pytest.mark.parametrize("capacity_factor", [1.25, 16.0])
 def test_moe_apply_matches(layer, dispatch_mode, capacity_factor):
